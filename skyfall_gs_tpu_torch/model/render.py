@@ -1,0 +1,102 @@
+"""Model-level render front-end: SH colors, 3D filters, rasterize.
+
+Port of ``skyfall_gs_tpu/model/render.py`` for states without appearance
+modeling: SH evaluated at the active degree (clamped at 0 after the +0.5
+shift), scales and opacities through the Mip-Splatting 3D filter.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from skyfall_gs_tpu_torch.core.camera import Camera
+from skyfall_gs_tpu_torch.core.sh import eval_sh
+from skyfall_gs_tpu_torch.model.gaussians import (
+    GaussianModelState,
+    get_opacity,
+    get_scaling,
+    opacity_with_3d_filter,
+    scaling_with_3d_filter,
+)
+from skyfall_gs_tpu_torch.ops.rasterize import RenderOutput, rasterize
+
+
+def _activated(state: GaussianModelState, with_3d_filter: bool):
+    params = state.params
+    if with_3d_filter:
+        return (scaling_with_3d_filter(params, state.aux.filter_3d),
+                opacity_with_3d_filter(params, state.aux.filter_3d))
+    return get_scaling(params), get_opacity(params)
+
+
+@torch.no_grad()
+def measure_bin_capacity(
+    state: GaussianModelState,
+    cameras,
+    kernel_size: float = 0.1,
+    with_3d_filter: bool = True,
+) -> int:
+    """Binning capacity for rendering ``cameras``: the worst view's measured
+    duplicated-entry count through ``capacity_for_entries``.  Reads one
+    count per camera back to the host."""
+    from skyfall_gs_tpu_torch.ops.binning import capacity_for_entries, count_entries
+    from skyfall_gs_tpu_torch.ops.projection import project_gaussians
+
+    scales, opac = _activated(state, with_3d_filter)
+    worst = 0
+    for cam in cameras:
+        proj = project_gaussians(state.params.xyz, scales, state.params.rotation, opac,
+                                 cam, kernel_size=kernel_size, mask=state.aux.alive)
+        worst = max(worst, int(count_entries(proj.mean2d, proj.radius, cam.height,
+                                             cam.width, radius_xy=proj.radius_xy)))
+    return capacity_for_entries(worst)
+
+
+def compute_colors(state: GaussianModelState, camera: Camera,
+                   override_color: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-Gaussian RGB for one view (SH evaluation)."""
+    if override_color is not None:
+        return override_color
+    params = state.params
+    dirs = params.xyz - camera.cam_center[None, :]
+    dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
+    sh = params.features.transpose(1, 2)                 # (N, 3, K)
+    return torch.clamp_min(eval_sh(state.active_sh_degree, sh, dirs) + 0.5, 0.0)
+
+
+def render(
+    state: GaussianModelState,
+    camera: Camera,
+    bg: torch.Tensor,
+    kernel_size: float = 0.1,
+    scaling_modifier: float = 1.0,
+    subpixel_offset: Optional[torch.Tensor] = None,
+    override_color: Optional[torch.Tensor] = None,
+    mean2d_dummy: Optional[torch.Tensor] = None,
+    mean2d_abs_dummy: Optional[torch.Tensor] = None,
+    backend: str = "tiled",
+    with_3d_filter: bool = True,
+    bin_capacity: Optional[int] = None,
+    inference: bool = False,
+    with_normals: bool = True,
+) -> RenderOutput:
+    """Render one view from the model state."""
+    scales, opac = _activated(state, with_3d_filter)
+    return rasterize(
+        state.params.xyz, scales, state.params.rotation, opac,
+        compute_colors(state, camera, override_color=override_color),
+        camera,
+        bg=bg,
+        kernel_size=kernel_size,
+        mask=state.aux.alive,
+        subpixel_offset=subpixel_offset,
+        scaling_modifier=scaling_modifier,
+        mean2d_dummy=mean2d_dummy,
+        mean2d_abs_dummy=mean2d_abs_dummy,
+        backend=backend,
+        bin_capacity=bin_capacity,
+        inference=inference,
+        with_normals=with_normals,
+    )

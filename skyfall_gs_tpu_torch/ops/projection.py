@@ -1,0 +1,203 @@
+"""EWA projection of 3D Gaussians to screen space (Mip-Splatting variant).
+
+Port of ``skyfall_gs_tpu/ops/projection.py``: perspective projection
+through the full projection matrix (principal-point aware), the EWA
+Jacobian with frustum-clamped focal terms, the screen-space dilation
+``cov2d += kernel_size * I`` with the ``sqrt(det0/det1)`` opacity
+compensation, the 3-sigma radius, the exact cutoff AABB ``radius_xy`` and
+near-plane culling at z > 0.2.  Plain tensor code; gradients come from
+torch autograd.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from skyfall_gs_tpu_torch.core.camera import Camera
+from skyfall_gs_tpu_torch.core.transforms import (
+    covariance_from_scaling_rotation,
+    quat_to_rotmat,
+)
+
+NEAR_CULL_Z = 0.2
+FRUSTUM_CLAMP = 1.3  # EWA Jacobian focal clamp, in multiples of tan(fov/2)
+
+
+@dataclass
+class ProjectedGaussians:
+    """Screen-space quantities for one camera view (all (N,) or (N, k))."""
+
+    mean2d: torch.Tensor        # (N, 2) pixel coordinates of the center
+    conic: torch.Tensor         # (N, 3) inverse 2D covariance (a, b, c)
+    depth: torch.Tensor         # (N,) camera-space z
+    radius: torch.Tensor        # (N,) int32 3-sigma screen radius; 0 = culled
+    opacity: torch.Tensor       # (N,) opacity incl. mip 2D compensation
+    compensation: torch.Tensor  # (N,) the sqrt(det0/det1) factor itself
+    # (N, 2) int32 half-extents of the alpha >= 1/255 cutoff ellipse's AABB
+    # (uncapped sigma multiplier, +0.5 px); binning's touched-tile rect.
+    radius_xy: torch.Tensor
+
+
+def perspective_project(means3d: torch.Tensor, camera: Camera):
+    """World points -> (pixel coordinates (N, 2), view-space z (N,))."""
+    ones = torch.ones_like(means3d[:, :1])
+    hom = torch.cat([means3d, ones], dim=-1)
+    clip = hom @ camera.full_proj.T                      # (N, 4)
+    w = 1.0 / (clip[:, 3] + 1e-7)
+    ndc = clip[:, :2] * w[:, None]
+    pix_x = ((ndc[:, 0] + 1.0) * float(camera.width) - 1.0) * 0.5
+    pix_y = ((ndc[:, 1] + 1.0) * float(camera.height) - 1.0) * 0.5
+    z_view = hom @ camera.world_view[2]
+    return torch.stack([pix_x, pix_y], dim=-1), z_view
+
+
+def compute_cov2d(means3d: torch.Tensor, cov3d: torch.Tensor, camera: Camera,
+                  kernel_size: float):
+    """EWA: 3D covariances -> dilated 2D screen covariances.
+
+    Returns (cov2d (N, 2, 2) after dilation, det_dilated (N,),
+    compensation (N,)).
+    """
+    wv = camera.world_view
+    t = means3d @ wv[:3, :3].T + wv[:3, 3]
+    tz = torch.clamp_min(t[:, 2], 1e-6)
+    m = FRUSTUM_CLAMP
+    lo_x = camera.tan_fovx * (-m - camera.cx)
+    hi_x = camera.tan_fovx * (m - camera.cx)
+    lo_y = camera.tan_fovy * (-m - camera.cy)
+    hi_y = camera.tan_fovy * (m - camera.cy)
+    tx = torch.clamp(t[:, 0] / tz, lo_x, hi_x) * tz
+    ty = torch.clamp(t[:, 1] / tz, lo_y, hi_y) * tz
+
+    fx, fy = camera.focal_x, camera.focal_y
+    inv_z = 1.0 / tz
+    inv_z2 = inv_z * inv_z
+    j00 = fx * inv_z
+    j02 = -fx * tx * inv_z2
+    j11 = fy * inv_z
+    j12 = -fy * ty * inv_z2
+
+    r = wv[:3, :3]
+    v = r @ cov3d @ r.T                                  # R Σ Rᵀ (N, 3, 3)
+
+    c00 = j00 * j00 * v[:, 0, 0] + 2.0 * j00 * j02 * v[:, 0, 2] + j02 * j02 * v[:, 2, 2]
+    c01 = (j00 * j11 * v[:, 0, 1] + j00 * j12 * v[:, 0, 2]
+           + j02 * j11 * v[:, 1, 2] + j02 * j12 * v[:, 2, 2])
+    c11 = j11 * j11 * v[:, 1, 1] + 2.0 * j11 * j12 * v[:, 1, 2] + j12 * j12 * v[:, 2, 2]
+
+    det0 = c00 * c11 - c01 * c01
+    c00d = c00 + kernel_size
+    c11d = c11 + kernel_size
+    det1 = c00d * c11d - c01 * c01
+    # Bounded-gradient sqrt: det0 of a thin splat cancels to anywhere in
+    # [-eps, eps]; sqrt'(x) is ~1e6 at 1e-12 and inf at 0, and on a live
+    # splat that reaches Adam as NaN.  Floor the argument at 1e-6 and zero
+    # the forward below it (comp < 1e-3 is invisible either way).
+    ratio = det0 / torch.clamp_min(det1, 1e-12)
+    compensation = torch.where(
+        ratio > 1e-6, torch.sqrt(torch.clamp_min(ratio, 1e-6)),
+        torch.zeros_like(ratio))
+    cov2d = torch.stack(
+        [torch.stack([c00d, c01], dim=-1), torch.stack([c01, c11d], dim=-1)], dim=-2)
+    return cov2d, det1, compensation
+
+
+def project_gaussians(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    opacities: torch.Tensor,
+    camera: Camera,
+    kernel_size: float = 0.1,
+    mask: torch.Tensor | None = None,
+    scaling_modifier: float = 1.0,
+    cov3d: torch.Tensor | None = None,
+) -> ProjectedGaussians:
+    """Full projection stage: 3D Gaussian state -> screen-space splats.
+
+    Args:
+        means3d: (N, 3) world positions.
+        scales: (N, 3) positive scales (activated, incl. 3D filter).
+        quats: (N, 4) wxyz rotations (not necessarily normalized).
+        opacities: (N,) opacities in [0, 1] (incl. 3D-filter compensation).
+        kernel_size: Mip-Splatting 2D dilation.
+        mask: (N,) optional alive mask — dead entries get radius 0.
+        cov3d: optional precomputed (N, 3, 3) covariances.
+    """
+    # Culled splats (dead slots, behind-camera points, z ~ 0) can make inf
+    # in the projective divisions; a zero cotangent times inf is NaN, which
+    # would reach live parameters.  Replace culled inputs with a benign
+    # splat one unit in front of the camera before any division; culling
+    # itself still uses the real depth.
+    wv = camera.world_view
+    depth_true = means3d @ wv[2, :3] + wv[2, 3]
+    keep = depth_true > NEAR_CULL_Z
+    if mask is not None:
+        keep = keep & mask
+    safe_point = camera.cam_center + wv[2, :3]
+    means3d = torch.where(keep[:, None], means3d, safe_point[None, :])
+    # Extreme transient scales overflow f32 determinants.
+    scales = torch.clamp_max(scales, 1e4)
+    if cov3d is None:
+        cov3d = covariance_from_scaling_rotation(scales, quats, scaling_modifier)
+    mean2d, depth = perspective_project(means3d, camera)
+    cov2d, det, compensation = compute_cov2d(means3d, cov3d, camera, kernel_size)
+    depth = torch.where(keep, depth_true, depth)
+
+    inv_det = 1.0 / torch.clamp_min(det, 1e-12)
+    conic = torch.stack(
+        [cov2d[:, 1, 1] * inv_det, -cov2d[:, 0, 1] * inv_det, cov2d[:, 0, 0] * inv_det],
+        dim=-1)
+
+    mid = 0.5 * (cov2d[:, 0, 0] + cov2d[:, 1, 1])
+    lam1 = mid + torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
+    # Opacity-adaptive extent: beyond sigma * sqrt(2 ln(255 op)) every pixel
+    # fails the alpha >= 1/255 test.  The stats radius keeps the 3-sigma cap.
+    op_eff = torch.clamp(opacities * compensation, 1e-12, 1.0)
+    log_term = torch.clamp_min(2.0 * torch.log(255.0 * op_eff), 1e-6)
+    sigma_mult = torch.clamp_max(torch.sqrt(log_term), 3.0)
+    radius = torch.ceil(sigma_mult * torch.sqrt(lam1))
+    sm_exact = torch.sqrt(log_term)
+    rx = torch.ceil(sm_exact * torch.sqrt(torch.clamp_min(cov2d[:, 0, 0], 0.0)) + 0.5)
+    ry = torch.ceil(sm_exact * torch.sqrt(torch.clamp_min(cov2d[:, 1, 1], 0.0)) + 0.5)
+
+    visible = keep & (det > 0.0) & (op_eff >= 1.0 / 255.0)
+    width, height = float(camera.width), float(camera.height)
+    on_screen = (
+        (mean2d[:, 0] + rx >= 0.0)
+        & (mean2d[:, 0] - rx < width)
+        & (mean2d[:, 1] + ry >= 0.0)
+        & (mean2d[:, 1] - ry < height)
+    )
+    visible = visible & on_screen
+    if mask is not None:
+        visible = visible & mask
+    zero = torch.zeros_like(radius)
+    radius_i = torch.where(visible, radius, zero).detach().to(torch.int32)
+    radius_xy = torch.where(visible[:, None], torch.stack([rx, ry], dim=1),
+                            zero[:, None]).detach().to(torch.int32)
+
+    return ProjectedGaussians(
+        mean2d=mean2d,
+        conic=conic,
+        depth=depth,
+        radius=radius_i,
+        opacity=opacities * compensation,
+        compensation=compensation,
+        radius_xy=radius_xy,
+    )
+
+
+def smallest_axis_normals(scales: torch.Tensor, quats: torch.Tensor,
+                          means3d: torch.Tensor, cam_center: torch.Tensor) -> torch.Tensor:
+    """Per-Gaussian normal: the principal axis with the smallest scale,
+    sign-flipped to face the camera."""
+    r = quat_to_rotmat(quats)                 # (N, 3, 3) columns are axes
+    idx = torch.argmin(scales, dim=-1)
+    axes = torch.take_along_dim(r, idx[:, None, None], dim=2)[..., 0]
+    to_cam = cam_center[None, :] - means3d
+    sign = torch.sign(torch.sum(axes * to_cam, dim=-1, keepdim=True))
+    sign = torch.where(sign == 0.0, torch.ones_like(sign), sign)
+    return axes * sign

@@ -1,0 +1,125 @@
+"""Differentiable 3DGS rasterization: public API and backend dispatch.
+
+Port of ``skyfall_gs_tpu/ops/rasterize.py``.  Backends:
+  * ``"reference"`` — the O(H*W*N) oracle (tests / tiny scenes);
+  * ``"tiled"`` — tile binning + the compositing kernels (production).
+
+Screen-space gradients for adaptive density control come out the same way
+as in the JAX package: ``mean2d_dummy`` (N, 2) zeros are added to the
+projected means, so the gradient w.r.t. it is d(loss)/d(mean2d); the tiled
+backend routes the AbsGS absolute screen gradient into
+``mean2d_abs_dummy``'s gradient.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from skyfall_gs_tpu_torch.core.camera import Camera
+from skyfall_gs_tpu_torch.ops.projection import project_gaussians, smallest_axis_normals
+from skyfall_gs_tpu_torch.ops.rasterize_ref import composite_reference
+from skyfall_gs_tpu_torch.ops.rasterize_tiled import composite_tiled
+
+
+@dataclass
+class RenderOutput:
+    """Everything the training loop and tools consume from one render."""
+
+    color: torch.Tensor    # (H, W, 3), background composited
+    depth: torch.Tensor    # (H, W) alpha-normalized expected view-space depth
+    normal: torch.Tensor   # (H, W, 3) premultiplied blended normals
+    alpha: torch.Tensor    # (H, W) 1 - final transmittance
+    radii: torch.Tensor    # (N,) int32 screen radii, 0 = culled/invisible
+    # () duplicated entries dropped by an undersized bin capacity (tiled
+    # backend only; 0 = everything composited).
+    overflow: Optional[torch.Tensor] = None
+
+    @property
+    def visibility(self) -> torch.Tensor:
+        return self.radii > 0
+
+
+def rasterize(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    opacities: torch.Tensor,
+    colors: torch.Tensor,
+    camera: Camera,
+    bg: torch.Tensor,
+    kernel_size: float = 0.1,
+    mask: Optional[torch.Tensor] = None,
+    subpixel_offset: Optional[torch.Tensor] = None,
+    scaling_modifier: float = 1.0,
+    mean2d_dummy: Optional[torch.Tensor] = None,
+    mean2d_abs_dummy: Optional[torch.Tensor] = None,
+    with_normals: bool = True,
+    backend: str = "tiled",
+    bin_capacity: Optional[int] = None,
+    inference: bool = False,
+) -> RenderOutput:
+    """Render one view.
+
+    Args:
+        means3d/scales/quats/opacities: activated Gaussian state (scales and
+            opacities already include the Mip-Splatting 3D filter).
+        colors: (N, 3) precomputed RGB.
+        bg: (3,) background color.
+        mask: (N,) alive mask for padded state.
+        mean2d_dummy: (N, 2) zeros; gradient w.r.t. it = screen gradient.
+        mean2d_abs_dummy: (N, 2) zeros; the tiled backend routes the AbsGS
+            absolute screen gradient into its gradient.
+        backend: "tiled" (the compositing kernels) or "reference" (oracle).
+        inference: tiled backend only — the forward kernel alone, outside
+            autograd (eval and video renders).
+    """
+    proj = project_gaussians(
+        means3d, scales, quats, opacities, camera,
+        kernel_size=kernel_size, mask=mask, scaling_modifier=scaling_modifier,
+    )
+    mean2d = proj.mean2d
+    if mean2d_dummy is not None:
+        mean2d = mean2d + mean2d_dummy
+
+    if with_normals:
+        normals = smallest_axis_normals(scales, quats, means3d, camera.cam_center)
+    else:
+        normals = torch.zeros_like(means3d)
+
+    # Blend channels: [r, g, b, depth, nx, ny, nz]
+    channels = torch.cat([colors, proj.depth[:, None], normals], dim=-1)
+
+    overflow = None
+    if backend == "reference":
+        out, t_final = composite_reference(
+            mean2d, proj.conic, proj.depth, proj.radius, proj.opacity,
+            channels, camera.height, camera.width, subpixel_offset)
+    elif backend == "tiled":
+        out, t_final, overflow = composite_tiled(
+            mean2d, proj.conic, proj.depth, proj.radius, proj.opacity,
+            channels, camera.height, camera.width,
+            subpixel_offset=subpixel_offset,
+            mean2d_abs_dummy=mean2d_abs_dummy,
+            cap=bin_capacity,
+            inference=inference,
+            radius_xy=proj.radius_xy,
+        )
+    else:
+        raise ValueError(f"unknown rasterize backend: {backend}")
+
+    color = out[..., :3] + t_final[..., None] * bg[None, None, :]
+    alpha = 1.0 - t_final
+    # Alpha-normalized expected depth Sum(w d) / Sum(w): the metric depth the
+    # Pearson depth loss is calibrated against.
+    depth = out[..., 3] / torch.clamp_min(alpha, 1e-8)
+    return RenderOutput(
+        color=color,
+        depth=depth,
+        normal=out[..., 4:7],
+        alpha=alpha,
+        radii=proj.radius,
+        overflow=overflow,
+    )

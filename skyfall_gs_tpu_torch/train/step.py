@@ -1,0 +1,218 @@
+"""The Stage-1 training step.
+
+Port of ``skyfall_gs_tpu/train/step.py`` (reference hot loop
+train.py:142-348): optional ray-jitter subpixel offsets with
+offset-resampled GT, masked L1 + SSIM photometric loss, Pearson depth loss,
+opacity binary entropy, screen-space gradient statistics through the
+dummy-input trick, and Adam with per-field LRs.
+
+PyTorch runs eagerly, so there is no jit; the step updates the parameters,
+Adam moments and densification statistics IN PLACE (one copy of each) and
+makes no host sync: the loss, the metrics and ``overflow`` stay tensors on
+the state's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from skyfall_gs_tpu_torch.core.camera import Camera
+from skyfall_gs_tpu_torch.model.densify import add_densification_stats
+from skyfall_gs_tpu_torch.model.gaussians import (
+    GaussianModelState,
+    GaussianParams,
+    field_names,
+    get_opacity,
+    map_fields,
+)
+from skyfall_gs_tpu_torch.model.optim import (
+    AdamState,
+    adam_init,
+    adam_update,
+    make_lr_tree,
+    make_weight_decay_tree,
+)
+from skyfall_gs_tpu_torch.model.render import render
+from skyfall_gs_tpu_torch.ops.losses import (
+    depth_pearson_loss,
+    opacity_entropy_loss,
+    photometric_loss,
+    psnr,
+)
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor
+    l1: torch.Tensor
+    depth_loss: torch.Tensor
+    opacity_loss: torch.Tensor
+    psnr: torch.Tensor
+    n_alive: torch.Tensor
+    # duplicated entries dropped by an undersized binning capacity; nonzero
+    # means splats silently vanished from this step's render + gradients
+    overflow: torch.Tensor
+
+
+@dataclass
+class TrainState:
+    model: GaussianModelState
+    opt: AdamState
+    step: int = 0
+
+
+def init_train_state(model: GaussianModelState) -> TrainState:
+    return TrainState(model=model, opt=adam_init(model.params))
+
+
+def resample_with_offset(image: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """Bilinear-resample (H, W, C) at pixel positions shifted by ``offset``
+    (H, W, 2), border-clamped (reference create_offset_gt)."""
+    h, w = image.shape[:2]
+    dev = image.device
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :] + offset[..., 0]
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None] + offset[..., 1]
+    # align_corners=True maps -1/+1 to the first/last pixel centers.
+    grid = torch.stack([xs * (2.0 / (w - 1)) - 1.0, ys * (2.0 / (h - 1)) - 1.0], dim=-1)
+    out = F.grid_sample(image.permute(2, 0, 1)[None], grid[None], mode="bilinear",
+                        padding_mode="border", align_corners=True)
+    return out[0].permute(1, 2, 0)
+
+
+def _build_grads_fn(
+    opt_cfg,
+    kernel_size: float = 0.1,
+    backend: str = "tiled",
+    ray_jitter: bool = False,
+    resample_gt: bool = False,
+    use_depth: bool = True,
+    bin_capacity: Optional[int] = None,
+):
+    """Build the per-view loss/gradient core: everything from render
+    through the backward, but not the optimizer update or the
+    densification statistics.
+
+    Signature:
+        grads(model, camera, gt_image (H,W,3), gt_mask (H,W), gt_depth (H,W),
+              bg (3,), lambda_opacity, generator=None, subpixel_offset=None)
+            -> (loss, aux dict, grads GaussianParams,
+                (d mean2d (C,2), AbsGS d mean2d (C,2)))
+
+    With ``ray_jitter`` the per-pixel subpixel offsets are drawn uniform in
+    [-0.5, 0.5) from ``generator`` unless ``subpixel_offset`` gives them.
+    """
+
+    def grads_fn(model: GaussianModelState, camera: Camera, gt_image, gt_mask,
+                 gt_depth, bg, lambda_opacity: float,
+                 generator: Optional[torch.Generator] = None,
+                 subpixel_offset: Optional[torch.Tensor] = None):
+        dev = model.params.xyz.device
+        h, w = camera.height, camera.width
+        subpix = None
+        if ray_jitter:
+            subpix = subpixel_offset
+            if subpix is None:
+                subpix = torch.rand((h, w, 2), generator=generator, device=dev) - 0.5
+
+        # Leaves that share the parameters' storage: autograd reads them,
+        # and the optimizer later writes the same storage in place.
+        leaves = map_fields(lambda t: t.detach().requires_grad_(True), model.params)
+        cap = model.params.capacity
+        dummy = torch.zeros((cap, 2), device=dev, requires_grad=True)
+        abs_dummy = torch.zeros((cap, 2), device=dev, requires_grad=True)
+
+        m = dataclasses.replace(model, params=leaves)
+        out = render(m, camera, bg, kernel_size=kernel_size, subpixel_offset=subpix,
+                     mean2d_dummy=dummy, mean2d_abs_dummy=abs_dummy,
+                     backend=backend, bin_capacity=bin_capacity,
+                     # the normal channel is not part of any training loss
+                     with_normals=False)
+        image = out.color * gt_mask[..., None]
+        gt = gt_image * gt_mask[..., None]
+        if resample_gt and subpix is not None:
+            gt = resample_with_offset(gt, subpix)
+
+        total, ll1 = photometric_loss(image.permute(2, 0, 1), gt.permute(2, 0, 1),
+                                      opt_cfg.lambda_dssim)
+        d_loss = torch.zeros((), device=dev)
+        if use_depth and opt_cfg.lambda_depth > 0:
+            d_loss = depth_pearson_loss(gt_depth * gt_mask, out.depth * gt_mask)
+            total = total + opt_cfg.lambda_depth * d_loss
+        o_loss = opacity_entropy_loss(get_opacity(leaves), model.aux.alive)
+        total = total + lambda_opacity * o_loss
+
+        names = field_names(GaussianParams)
+        grads = torch.autograd.grad(
+            total, [getattr(leaves, k) for k in names] + [dummy, abs_dummy])
+        aux = {
+            "l1": ll1.detach(),
+            "depth_loss": d_loss.detach(),
+            "opacity_loss": o_loss.detach(),
+            "radii": out.radii,
+            "psnr": psnr(image.detach(), gt.detach()),
+            "overflow": out.overflow,
+        }
+        return (total.detach(), aux, GaussianParams(**dict(zip(names, grads[:-2]))),
+                (grads[-2], grads[-1]))
+
+    return grads_fn
+
+
+def make_train_step(opt_cfg, **kwargs):
+    """Build the single training step (``kwargs`` as for
+    :func:`_build_grads_fn`).
+
+    Signature:
+        step(state, camera, gt_image (H,W,3), gt_mask (H,W), gt_depth (H,W),
+             bg (3,), xyz_lr, lambda_opacity, generator=None,
+             subpixel_offset=None) -> (state, StepMetrics)
+
+    ``state`` is updated in place and returned.
+    """
+    grads_fn = _build_grads_fn(opt_cfg, **kwargs)
+
+    def step(state: TrainState, camera: Camera, gt_image, gt_mask, gt_depth, bg,
+             xyz_lr: float, lambda_opacity: float,
+             generator: Optional[torch.Generator] = None,
+             subpixel_offset: Optional[torch.Tensor] = None):
+        model = state.model
+        loss, aux, grads, (g_mean2d, g_abs) = grads_fn(
+            model, camera, gt_image, gt_mask, gt_depth, bg, lambda_opacity,
+            generator, subpixel_offset)
+        add_densification_stats(model.aux, g_mean2d, g_abs, aux["radii"],
+                                camera.width, camera.height)
+        adam_update(grads, state.opt, model.params, make_lr_tree(opt_cfg, xyz_lr),
+                    weight_decay_tree=make_weight_decay_tree(opt_cfg))
+        state.step += 1
+        metrics = StepMetrics(
+            loss=loss,
+            l1=aux["l1"],
+            depth_loss=aux["depth_loss"],
+            opacity_loss=aux["opacity_loss"],
+            psnr=aux["psnr"],
+            n_alive=torch.sum(model.aux.alive),
+            overflow=aux["overflow"],
+        )
+        return state, metrics
+
+    return step
+
+
+def make_eval_render(kernel_size: float = 0.1, backend: str = "tiled",
+                     bin_capacity: Optional[int] = None):
+    """No-grad render for test-time evaluation (the forward kernel only).
+
+    ``bin_capacity`` should come from render.measure_bin_capacity for the
+    target resolution.
+    """
+
+    @torch.no_grad()
+    def fn(model: GaussianModelState, camera: Camera, bg):
+        return render(model, camera, bg, kernel_size=kernel_size, backend=backend,
+                      bin_capacity=bin_capacity, inference=(backend == "tiled"))
+
+    return fn
