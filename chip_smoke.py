@@ -13,11 +13,23 @@ Phases, one line each:
      8 orbit cameras), with both kernels' launch counts, then each kernel
      timed alone against its plain version at that shape;
   4. one training step's loss and gradients on the card against the same
-     step on the CPU (plain versions) on a small scene.
-The last two lines before the final one are the kernels' JSON record and
-the card's name and power limit; the final line is the JSON result.  Any
-failure raises, and the script exits non-zero without a result.  There is
-no CPU path.
+     step on the CPU (plain versions) on a small scene;
+  5. the Stage-1 Trainer on the card, run as the JAX package's quality gate
+     (bench.py quality_metric): the 256 px synthetic city (16 views, 2
+     held out, 2000 GT points, scene seed 0), appearance (4 frequencies,
+     dim 32) and depth (0.1) on, densify every 150 iterations in
+     (300, 1200), opacity reset every 1500, 2000 iterations, for Trainer
+     seeds 0, 1 and 2.  One line per seed (test PSNR and SSIM, splats and
+     capacity, densify passes and drops, the largest binning overflow of
+     any step, wall time and it/s, peak memory, kernel launches), then the
+     median seed's line.  It fails on a non-finite loss or parameter, any
+     overflow, a kernel not launched, or a median PSNR under 22.7 dB (the
+     lowest JAX seed of the gate).  Seed 0 also writes and reloads a
+     checkpoint and writes a PLY.
+The last two lines before the final one are the kernels' JSON record
+(launches counted over phases 3 and 5) and the card's name and power
+limit; the final line is the JSON result.  Any failure raises, and the
+script exits non-zero without a result.  There is no CPU path.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -39,6 +52,14 @@ N_GAUSSIANS = 100_000
 IMG = 512
 WARMUP_STEPS = 3
 MEASURE_STEPS = 20
+
+# Quality gate (bench.py:199-262 quality_metric).
+Q_SCENE = dict(n_views=16, size=256, n_points=2000, n_test=2)
+Q_ITERS = 2000
+Q_OPT = dict(densify_from_iter=300, densification_interval=150, densify_until_iter=1200,
+             opacity_reset_interval=1500, lambda_depth=0.1, lambda_opacity=0.01)
+Q_SEEDS = (0, 1, 2)
+Q_MIN_MEDIAN_PSNR = 22.7   # the lowest of the JAX package's three seeds
 
 
 def log(phase, msg: str) -> None:
@@ -128,6 +149,107 @@ def kernels_vs_plain(torch, rt, inputs, dout, dtfin):
 
 
 # ----------------------------------------------------------------------------
+# Phase 5: the Trainer on the quality scene
+# ----------------------------------------------------------------------------
+
+def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: bool):
+    """Train one Trainer seed on ``scene`` and return its record."""
+    from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from skyfall_gs_tpu_torch.io.synthetic import test_psnr
+    from skyfall_gs_tpu_torch.model.gaussians import flat_fields
+    from skyfall_gs_tpu_torch.ops.ssim import ssim
+    from skyfall_gs_tpu_torch.train.logging import MetricsLogger
+    from skyfall_gs_tpu_torch.train.loop import Trainer
+
+    model_cfg = ModelConfig(model_path=out_dir, kernel_size=0.1, appearance_enabled=True,
+                            appearance_n_fourier_freqs=4, appearance_embedding_dim=32)
+    opt_cfg = OptimizationConfig(iterations=Q_ITERS, position_lr_max_steps=Q_ITERS, **Q_OPT)
+    # Every step's metrics are logged (overflow included); they stay on the
+    # card until the logger flushes every 200 steps.
+    logger = MetricsLogger(out_dir, log_every=1, print_every=Q_ITERS)
+    trainer = Trainer(model_cfg, opt_cfg, PipelineConfig(), scene, logger=logger,
+                      rng_seed=seed)
+    state = trainer.init_state()
+    last = (Q_ITERS,) if snapshots else ()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rt.composite_fwd.launches = 0
+    rt.composite_bwd.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.train(state, iterations=Q_ITERS, test_iterations=last,
+                          save_iterations=last, checkpoint_iterations=last)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    psnr = test_psnr(trainer, scene, state)
+    with torch.no_grad():
+        ssims = [float(ssim(torch.clamp(trainer._eval_render(state.model, v.camera,
+                                                              trainer.bg).color, 0, 1)
+                            .permute(2, 0, 1),
+                            torch.tensor(v.image, device=trainer.device).permute(2, 0, 1)))
+                 for v in scene.test_views]
+    launches = {"fwd": rt.composite_fwd.launches, "bwd": rt.composite_bwd.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    logger.close()
+
+    with open(Path(out_dir) / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if r["type"] == "step"]
+    dens = [r for r in records if r["type"] == "densify"]
+    assert len(steps) == Q_ITERS, len(steps)
+    bad = [r["iter"] for r in steps if not np.isfinite([r["loss"], r["psnr"]]).all()]
+    assert not bad, f"seed {seed}: non-finite loss at iterations {bad[:5]}"
+    for k, v in flat_fields(state.model.params):
+        assert bool(torch.isfinite(v).all()), f"seed {seed}: non-finite parameter {k}"
+    overflow = max(int(r["overflow"]) for r in steps)
+    assert overflow == 0, f"seed {seed}: binning overflow {overflow}"
+    assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
+    if snapshots:
+        ckpt = Path(out_dir) / f"chkpnt{Q_ITERS}.npz"
+        ply = Path(out_dir) / "point_cloud" / f"iteration_{Q_ITERS}" / "point_cloud.ply"
+        assert ply.is_file() and ply.stat().st_size > 0, ply
+        back = trainer.init_state(start_checkpoint=str(ckpt))
+        assert trainer.start_iteration == Q_ITERS and back.step == state.step
+        for (k, a), (_, b) in zip(flat_fields(back.model.params), flat_fields(state.model.params)):
+            assert bool(torch.equal(a, b)), f"checkpoint round trip changed {k}"
+    return {"seed": seed, "psnr": psnr, "ssim": float(np.mean(ssims)),
+            "n_splats": int(state.model.num_alive),
+            "capacity": state.model.params.capacity, "densify_passes": len(dens),
+            "n_dropped": sum(r["n_dropped"] for r in dens), "max_overflow": overflow,
+            "wall_s": wall, "it_per_s": Q_ITERS / wall, "peak_gib": peak,
+            "launches": launches}
+
+
+def quality_phase(torch, rt, dev, card: str) -> dict:
+    """Phase 5; returns the kernels' launch counts summed over the seeds."""
+    from skyfall_gs_tpu_torch.io.synthetic import make_city_scene
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="skyfall_quality_") as tmp:
+        scene = make_city_scene(tmp, device=dev, **Q_SCENE)
+        runs = []
+        for seed in Q_SEEDS:
+            r = train_quality_seed(torch, rt, scene, seed, str(Path(tmp) / f"seed{seed}"),
+                                   snapshots=(seed == Q_SEEDS[0]))
+            runs.append(r)
+            log(5, f"seed {seed} on [{card}]: test PSNR {r['psnr']:.3f} dB, SSIM "
+                   f"{r['ssim']:.4f}, n_splats {r['n_splats']}, capacity {r['capacity']}, "
+                   f"densify passes {r['densify_passes']}, n_dropped {r['n_dropped']}, max "
+                   f"overflow {r['max_overflow']}, {Q_ITERS} it in {r['wall_s']:.2f} s "
+                   f"({r['it_per_s']:.2f} it/s), peak memory {r['peak_gib']:.3f} GiB, "
+                   f"launches fwd {r['launches']['fwd']} bwd {r['launches']['bwd']}")
+            torch.cuda.empty_cache()
+    psnrs = [r["psnr"] for r in runs]
+    med = runs[int(np.argsort(psnrs)[(len(runs) - 1) // 2])]   # lower median: one real run
+    log(5, f"median seed {med['seed']}: test PSNR {med['psnr']:.3f} dB, SSIM "
+           f"{med['ssim']:.4f}, n_splats {med['n_splats']}; per-seed PSNR "
+           f"{[round(p, 3) for p in psnrs]}, spread {max(psnrs) - min(psnrs):.3f} dB "
+           f"(gate: median >= {Q_MIN_MEDIAN_PSNR} dB); phase 5 took "
+           f"{time.perf_counter() - t_phase:.1f} s")
+    assert med["psnr"] >= Q_MIN_MEDIAN_PSNR, f"median test PSNR {med['psnr']:.3f} dB"
+    return {k: sum(r["launches"][k] for r in runs) for k in ("fwd", "bwd")}
+
+
+# ----------------------------------------------------------------------------
 # Main
 # ----------------------------------------------------------------------------
 
@@ -150,7 +272,7 @@ def main() -> int:
     from skyfall_gs_tpu_torch.config import OptimizationConfig
     from skyfall_gs_tpu_torch.core.camera import orbit_cameras
     from skyfall_gs_tpu_torch.model.gaussians import (
-        create_from_points, opacity_with_3d_filter, scaling_with_3d_filter,
+        create_from_points, flat_fields, opacity_with_3d_filter, scaling_with_3d_filter,
         state_from_numpy, state_to_numpy)
     from skyfall_gs_tpu_torch.model.render import compute_colors, measure_bin_capacity
     from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
@@ -260,7 +382,7 @@ def main() -> int:
     overflow = torch.stack([m.overflow for m in metrics])
     n_alive = torch.stack([m.n_alive for m in metrics])
     assert bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}"
-    for k, v in vars(ts.model.params).items():
+    for k, v in flat_fields(ts.model.params):
         assert bool(torch.isfinite(v).all()), f"non-finite parameter {k}"
     assert int(overflow.max()) == 0, f"bin capacity overflow: {overflow.tolist()}"
     assert bool((n_alive == N_GAUSSIANS).all()), n_alive.tolist()
@@ -337,8 +459,8 @@ def main() -> int:
                                 subpixel_offset=torch.from_numpy(offset).to(d)))
     (loss_c, _, g_c, dd_c), (loss_g, _, g_g, dd_g) = results
     loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
-    grad_rel = {k: rel_norm(getattr(g_g, k).cpu(), getattr(g_c, k))
-                for k in vars(g_c)}
+    g_card = dict(flat_fields(g_g))
+    grad_rel = {k: rel_norm(g_card[k].cpu(), v) for k, v in flat_fields(g_c)}
     grad_rel["mean2d"] = rel_norm(dd_g[0].cpu(), dd_c[0])
     grad_rel["mean2d_abs"] = rel_norm(dd_g[1].cpu(), dd_c[1])
     worst = max(grad_rel, key=grad_rel.get)
@@ -347,6 +469,10 @@ def main() -> int:
            f"{worst} {grad_rel[worst]:.2e} (tol 1e-3)")
     assert loss_rel <= 1e-4, loss_rel
     assert grad_rel[worst] <= 1e-3, grad_rel
+
+    # -- phase 5: the Trainer on the quality scene ------------------------------
+    for k, n in quality_phase(torch, rt, dev, card).items():
+        launches[k] += n
 
     kernels = [
         {"name": "composite_fwd", "route": "cuda", "source": KERNEL_SOURCE,

@@ -9,8 +9,9 @@ compositing kernels (``ops/rasterize_tiled.py``) are hand-written CUDA C++
 for Hopper (``csrc/composite.cu``), built with ``nvcc`` at first use; on
 CPU tensors their plain PyTorch versions run instead.
 
-Ported so far: the Stage-1 training step (``train/step.py``) and everything
-it runs.
+Ported so far: Stage-1 training -- the step (``train/step.py``), the
+single-device ``Trainer`` (``train/loop.py``) with appearance modeling,
+densify/prune, checkpoints and PLY snapshots -- and everything they run.
 """
 
 __version__ = "0.1.0"

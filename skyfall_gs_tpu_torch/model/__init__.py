@@ -1,2 +1,2 @@
-"""Gaussian state, rendering front-end, optimizer, densification statistics
-(port of skyfall_gs_tpu.model)."""
+"""Gaussian state, appearance model, rendering front-end, optimizer and
+adaptive density control (port of skyfall_gs_tpu.model)."""

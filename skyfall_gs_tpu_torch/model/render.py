@@ -1,8 +1,9 @@
-"""Model-level render front-end: SH colors, 3D filters, rasterize.
+"""Model-level render front-end: appearance/SH colors, 3D filters, rasterize.
 
-Port of ``skyfall_gs_tpu/model/render.py`` for states without appearance
-modeling: SH evaluated at the active degree (clamped at 0 after the +0.5
-shift), scales and opacities through the Mip-Splatting 3D filter.
+Port of ``skyfall_gs_tpu/model/render.py``: SH evaluated at the active
+degree (clamped at 0 after the +0.5 shift), after the appearance MLP has
+toned the SH coefficients for the view's camera embedding when appearance
+is enabled; scales and opacities through the Mip-Splatting 3D filter.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from skyfall_gs_tpu_torch.core.camera import Camera
 from skyfall_gs_tpu_torch.core.sh import eval_sh
+from skyfall_gs_tpu_torch.model.appearance import apply_appearance
 from skyfall_gs_tpu_torch.model.gaussians import (
     GaussianModelState,
     get_opacity,
@@ -54,15 +56,30 @@ def measure_bin_capacity(
     return capacity_for_entries(worst)
 
 
-def compute_colors(state: GaussianModelState, camera: Camera,
+def compute_colors(state: GaussianModelState, camera: Camera, testing: bool = False,
+                   appearance_embedding: Optional[torch.Tensor] = None,
                    override_color: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-Gaussian RGB for one view (SH evaluation)."""
+    """Per-Gaussian RGB for one view (appearance + SH evaluation).
+
+    The camera embedding is ``appearance_embedding`` when given; else, with
+    ``testing``, the fixed reference embedding ``min(6, M-1)``; else the
+    camera's own, ``clip(uid, 0, M-1)``.
+    """
     if override_color is not None:
         return override_color
     params = state.params
     dirs = params.xyz - camera.cam_center[None, :]
     dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
-    sh = params.features.transpose(1, 2)                 # (N, 3, K)
+    features = params.features
+    if state.appearance.enabled and params.appearance_mlp is not None:
+        table = params.appearance_embeddings
+        emb = appearance_embedding
+        if emb is None:
+            m = table.shape[0]
+            emb = table[min(6, m - 1) if testing else min(max(camera.uid, 0), m - 1)]
+        features = apply_appearance(params.appearance_mlp, params.embeddings, emb,
+                                    features)
+    sh = features.transpose(1, 2)                        # (N, 3, K)
     return torch.clamp_min(eval_sh(state.active_sh_degree, sh, dirs) + 0.5, 0.0)
 
 
@@ -73,6 +90,8 @@ def render(
     kernel_size: float = 0.1,
     scaling_modifier: float = 1.0,
     subpixel_offset: Optional[torch.Tensor] = None,
+    testing: bool = False,
+    appearance_embedding: Optional[torch.Tensor] = None,
     override_color: Optional[torch.Tensor] = None,
     mean2d_dummy: Optional[torch.Tensor] = None,
     mean2d_abs_dummy: Optional[torch.Tensor] = None,
@@ -86,7 +105,9 @@ def render(
     scales, opac = _activated(state, with_3d_filter)
     return rasterize(
         state.params.xyz, scales, state.params.rotation, opac,
-        compute_colors(state, camera, override_color=override_color),
+        compute_colors(state, camera, testing=testing,
+                       appearance_embedding=appearance_embedding,
+                       override_color=override_color),
         camera,
         bg=bg,
         kernel_size=kernel_size,

@@ -1,1 +1,2 @@
-"""The Stage-1 training step (port of skyfall_gs_tpu.train)."""
+"""The Stage-1 training step, the Trainer, checkpoints and metrics logging
+(port of skyfall_gs_tpu.train)."""

@@ -1,0 +1,367 @@
+"""Stage-1 training orchestration: the host-side curriculum around the step.
+
+Port of the single-device ``Trainer`` of ``skyfall_gs_tpu/train/loop.py``,
+line for line in its curriculum:
+  * random view sampling from ``random.Random(rng_seed)`` with the optional
+    30% high-res resampling and a push-back stack, so with the same seed
+    the port picks the same views as the JAX Trainer;
+  * SH degree +1 every 1000 iterations; the scheduled xyz LR;
+  * densify every ``densification_interval`` iterations inside
+    (``densify_from_iter``, ``densify_until_iter``) after growing capacity
+    host-side to keep ``free >= max(n_alive, 2048)``, then the 3D filter
+    recompute and the binning-capacity re-measure (with hysteresis);
+  * opacity reset every ``opacity_reset_interval`` iterations (and at
+    ``densify_from_iter`` on a white background) with the
+    ``lambda_opacity`` cooldown;
+  * 3D filter refresh every 100 iterations after densification;
+  * step metrics through the MetricsLogger, test renders, PLY snapshots
+    and checkpoints at milestones; an optional torch.profiler trace.
+
+The loop reads the device only where the JAX Trainer does: ``num_alive``
+at each densify pass, binning-capacity measurements after it, and the
+logger's flush, reports and snapshots.
+
+``pipe_cfg.fuse_steps`` is accepted and ignored: the JAX Trainer fuses
+runs of steps into one ``lax.scan`` dispatch to amortize TPU dispatch
+overhead, and fused and unfused JAX training are step-for-step identical,
+so the port runs the unfused loop (a CUDA graph is the GPU's answer to
+launch overhead).
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+from skyfall_gs_tpu_torch.io.gaussian_ply import save_gaussian_ply
+from skyfall_gs_tpu_torch.io.scene import SceneData, ViewGroup
+from skyfall_gs_tpu_torch.model.appearance import AppearanceConfig
+from skyfall_gs_tpu_torch.model.densify import densify_and_prune, grow_capacity
+from skyfall_gs_tpu_torch.model.gaussians import (
+    camera_filter_arrays,
+    compute_3d_filter,
+    create_from_points,
+    get_opacity,
+    reset_opacity,
+)
+from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
+from skyfall_gs_tpu_torch.ops.losses import psnr as psnr_fn
+from skyfall_gs_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    peek_checkpoint_meta,
+    save_checkpoint,
+)
+from skyfall_gs_tpu_torch.train.logging import MetricsLogger
+from skyfall_gs_tpu_torch.train.step import (
+    TrainState,
+    init_train_state,
+    make_eval_render,
+    make_train_step,
+)
+from skyfall_gs_tpu_torch.utils.general import expon_lr_schedule
+from skyfall_gs_tpu_torch.viz.colormap import colorize_depth
+
+
+@dataclass
+class Trainer:
+    """Drives Stage-1 training for one scene on the scene's device.
+
+    Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+    Queue 1 item: ``mesh`` / ``mesh_mode`` and ``.orbax`` checkpoints
+    (multi-device, item 16), ``gui`` (item 15), a ``depth_predictor`` with
+    ``lambda_pseudo_depth > 0`` (item 14) and ``use_lpips_loss`` (it needs
+    LPIPS weights the repository does not hold).
+    """
+
+    model_cfg: ModelConfig
+    opt_cfg: OptimizationConfig
+    pipe_cfg: PipelineConfig
+    scene: SceneData
+    depth_predictor: Optional[Callable] = None
+    logger: Optional[MetricsLogger] = None
+    rng_seed: int = 0
+    gui: Optional[object] = None
+    profile_dir: Optional[str] = None   # torch.profiler chrome trace output
+    profile_steps: int = 20
+    mesh: Optional[object] = None
+    mesh_mode: str = "view"
+
+    def __post_init__(self):
+        cfg, o = self.model_cfg, self.opt_cfg
+        unported = [
+            (self.mesh is not None,
+             f"multi-device training (mesh_mode={self.mesh_mode!r})", "ROADMAP Queue 1 item 16"),
+            (self.gui is not None, "the live viewer (gui)", "ROADMAP Queue 1 item 15"),
+            (self.depth_predictor is not None and o.lambda_pseudo_depth > 0,
+             "pseudo-view depth supervision", "ROADMAP Queue 1 item 14"),
+            (o.use_lpips_loss, "the LPIPS loss", "it needs LPIPS weights in the repository"),
+        ]
+        for hit, what, where in unported:
+            if hit:
+                raise NotImplementedError(f"{what} is not ported yet ({where})")
+        self.device = torch.device(self.scene.device)
+        self.appearance = AppearanceConfig(
+            enabled=cfg.appearance_enabled,
+            n_fourier_freqs=cfg.appearance_n_fourier_freqs,
+            embedding_dim=cfg.appearance_embedding_dim,
+        )
+        self.bg = torch.tensor([1.0, 1.0, 1.0] if cfg.white_background else [0.0, 0.0, 0.0],
+                               device=self.device)
+        self.py_rng = random.Random(self.rng_seed)
+        # Split offsets and ray-jitter draws.
+        self.generator = torch.Generator(device=self.device).manual_seed(self.rng_seed)
+        self._step_fns = {}
+        self._pick_pushbacks = []
+        self.bin_capacity = int(self.pipe_cfg.bin_capacity) or None
+        self._eval_caps = {}   # (h, w) -> measured render capacity
+        if self.logger is None:
+            self.logger = MetricsLogger(cfg.model_path)
+        self.filter_cams = camera_filter_arrays([v.camera for v in self.scene.train_views])
+        self.flat_index = [(key, i) for key, g in self.scene.train_groups.items()
+                           for i in range(g.size)]
+        self.highres_index = [(k, i) for (k, i) in self.flat_index if k[1] >= 800]
+        self.start_iteration = 0
+
+    # ------------------------------------------------------------------
+    def init_state(self, start_checkpoint: Optional[str] = None) -> TrainState:
+        cap = self.pipe_cfg.gaussian_capacity or None
+        model = create_from_points(
+            self.scene.points, self.scene.colors,
+            max_sh_degree=self.model_cfg.sh_degree, appearance=self.appearance,
+            num_cameras=self.scene.num_train, spatial_lr_scale=self.scene.cameras_extent,
+            capacity=cap, seed=self.rng_seed, device=self.device)
+        state = init_train_state(model)
+        self.start_iteration = 0
+        if start_checkpoint:
+            if start_checkpoint.endswith(".orbax") or os.path.isdir(start_checkpoint):
+                raise NotImplementedError("sharded .orbax checkpoints are not ported "
+                                          "yet (ROADMAP Queue 1 item 16)")
+            meta = peek_checkpoint_meta(start_checkpoint)
+            if meta["capacity"] != model.params.capacity:
+                state.model, state.opt = grow_capacity(state.model, state.opt,
+                                                       meta["capacity"])
+            state, self.start_iteration = load_checkpoint(start_checkpoint, state)
+        self._refresh_filter(state)
+        return state
+
+    def _refresh_filter(self, state: TrainState) -> None:
+        m = state.model
+        m.aux.filter_3d.copy_(compute_3d_filter(m.params.xyz, m.aux.alive,
+                                                *self.filter_cams))
+
+    # ------------------------------------------------------------------
+    def _get_step_fn(self, use_depth: bool):
+        key = (use_depth, self.bin_capacity)
+        if key not in self._step_fns:
+            self._step_fns[key] = make_train_step(
+                self.opt_cfg, kernel_size=self.model_cfg.kernel_size,
+                backend=self.pipe_cfg.rasterizer_backend,
+                ray_jitter=self.model_cfg.ray_jitter,
+                resample_gt=self.model_cfg.resample_gt_image,
+                use_depth=use_depth, bin_capacity=self.bin_capacity)
+        return self._step_fns[key]
+
+    def _update_bin_capacity(self, state: TrainState) -> None:
+        """Right-size the binning capacity from the worst train view's
+        measured entry count (``capacity_for_entries``: 1.2x headroom in
+        64k buckets).  Every train view is measured, where the JAX Trainer
+        measures the first view of each resolution group only and relies
+        on the headroom to cover the others."""
+        if self.pipe_cfg.bin_capacity:
+            self.bin_capacity = int(self.pipe_cfg.bin_capacity)
+            return
+        self.bin_capacity = measure_bin_capacity(
+            state.model, [c for g in self.scene.train_groups.values() for c in g.cameras],
+            kernel_size=self.model_cfg.kernel_size)
+        # Eval capacities were measured against the old splat set.
+        self._eval_caps.clear()
+
+    def _eval_render(self, model, camera, bg):
+        """No-grad render with a binning capacity measured for the camera's
+        resolution, cached per resolution until the next re-measure."""
+        key = (camera.height, camera.width)
+        if key not in self._eval_caps:
+            self._eval_caps[key] = measure_bin_capacity(
+                model, [camera], kernel_size=self.model_cfg.kernel_size)
+        return make_eval_render(self.model_cfg.kernel_size,
+                                self.pipe_cfg.rasterizer_backend,
+                                bin_capacity=self._eval_caps[key])(model, camera, bg)
+
+    def _push_back_pick(self, pick) -> None:
+        """Return an unconsumed pick to the front of the stream."""
+        self._pick_pushbacks.append(pick)
+
+    def _pick_view(self):
+        if self._pick_pushbacks:
+            return self._pick_pushbacks.pop()
+        key, i = self.py_rng.choice(self.flat_index)
+        if (self.model_cfg.sample_more_highres and self.highres_index
+                and self.py_rng.random() < 0.3):
+            key, i = self.py_rng.choice(self.highres_index)
+        g: ViewGroup = self.scene.train_groups[key]
+        return g, i
+
+    # ------------------------------------------------------------------
+    def train(self, state: Optional[TrainState] = None,
+              iterations: Optional[int] = None,
+              test_iterations: tuple = (),
+              save_iterations: tuple = (),
+              checkpoint_iterations: tuple = ()) -> TrainState:
+        o = self.opt_cfg
+        cfg = self.model_cfg
+        if state is None:
+            state = self.init_state()
+        iterations = iterations or o.iterations
+        xyz_sched = expon_lr_schedule(
+            o.position_lr_init * state.model.spatial_lr_scale,
+            o.position_lr_final * state.model.spatial_lr_scale,
+            lr_delay_mult=o.position_lr_delay_mult,
+            max_steps=o.position_lr_max_steps,
+        )
+        lambda_opacity = o.lambda_opacity
+        cooldown = None
+        t_start = time.time()
+        first_iter = self.start_iteration + 1
+        if self.bin_capacity is None:
+            self._update_bin_capacity(state)
+        prof = None
+        prof_start = first_iter + 20 if self.profile_dir else -1
+        prof_stop = prof_start + self.profile_steps if self.profile_dir else -1
+
+        for iteration in range(first_iter, iterations + 1):
+            if cooldown is not None:
+                if cooldown > 0:
+                    cooldown -= 1
+                else:
+                    cooldown = None
+                    lambda_opacity = o.lambda_opacity
+            if iteration % 1000 == 0:
+                state.model.one_up_sh_degree()
+
+            g, i = self._pick_view()
+            use_depth = o.lambda_depth > 0 and g.has_depth
+            cam, image, mask, depth = g.select(i)
+            state, metrics = self._get_step_fn(use_depth)(
+                state, cam, image, mask, depth, self.bg, xyz_sched(iteration),
+                lambda_opacity, generator=self.generator)
+
+            # ---- densification ------------------------------------------
+            if iteration < o.densify_until_iter:
+                if (iteration > o.densify_from_iter
+                        and iteration % o.densification_interval == 0):
+                    state = self._densify(state)
+                if iteration % o.opacity_reset_interval == 0 or (
+                        cfg.white_background and iteration == o.densify_from_iter):
+                    params = state.model.params
+                    params.opacity.copy_(reset_opacity(params, state.model.aux.filter_3d))
+                    lambda_opacity = 0.01
+                    cooldown = o.opacity_cooldown_iterations
+            elif iteration % 100 == 0 and iteration < iterations - 100:
+                self._refresh_filter(state)
+
+            # ---- profiling / logging / eval / snapshots -------------------
+            if iteration == prof_start:
+                prof = self._start_profiler()
+            elif iteration == prof_stop and prof is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                prof.stop()
+                os.makedirs(self.profile_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
+                print(f"wrote profiler trace to {self.profile_dir}", flush=True)
+                prof = None
+            if self.logger:
+                self.logger.log_step(iteration, metrics, time.time() - t_start)
+            if iteration in test_iterations:
+                self._report(state, iteration)
+            if iteration in save_iterations:
+                self.save_ply(state, iteration)
+            if iteration in checkpoint_iterations:
+                save_checkpoint(os.path.join(cfg.model_path, f"chkpnt{iteration}.npz"),
+                                state, iteration)
+
+        if prof is not None:
+            prof.stop()
+        if self.logger:
+            self.logger.flush()
+        return state
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    # ------------------------------------------------------------------
+    def _densify(self, state: TrainState) -> TrainState:
+        o = self.opt_cfg
+        # Grow capacity host-side before the pass: a worst-case pass adds up
+        # to 2 children per live splat, and dropped children permanently
+        # lose their (killed) split parents — so keep free >= n_alive.
+        n_alive = int(state.model.num_alive)
+        cap = state.model.params.capacity
+        if cap - n_alive < max(n_alive, 2048):
+            new_cap = max(cap * 2, -(-(2 * n_alive + 2048) // 1024) * 1024)
+            state.model, state.opt = grow_capacity(state.model, state.opt, new_cap)
+        stats = densify_and_prune(
+            state.model.params, state.model.aux, state.opt, self.generator,
+            max_grad=o.densify_grad_threshold, min_opacity=0.005,
+            extent=float(self.scene.cameras_extent),
+            max_screen_size=float(o.size_threshold), percent_dense=o.percent_dense)
+        self._refresh_filter(state)
+        if self.logger:
+            self.logger.log_densify(state.step, stats)
+        # Re-size the binning capacity with hysteresis (only large swings).
+        if not self.pipe_cfg.bin_capacity and self.bin_capacity is not None:
+            old = self.bin_capacity
+            self._update_bin_capacity(state)
+            if 0.5 * old <= self.bin_capacity <= old:
+                self.bin_capacity = old
+        return state
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _report(self, state: TrainState, iteration: int) -> None:
+        """Held-out render-off: test/train L1 and PSNR, rendered / depth /
+        GT images of the first views, the opacity histogram and the live
+        point count."""
+        for name, views in (("test", self.scene.test_views),
+                            ("train", self.scene.train_views[:5])):
+            if not views:
+                continue
+            l1s, psnrs = [], []
+            for i, v in enumerate(views[:8]):
+                out = self._eval_render(state.model, v.camera, self.bg)
+                img = torch.clamp(out.color, 0.0, 1.0)
+                gt = torch.tensor(v.image, device=self.device)
+                l1s.append(float(torch.mean(torch.abs(img - gt))))
+                psnrs.append(float(psnr_fn(img, gt)))
+                if self.logger and i < 5:
+                    tag = f"{name}_{v.image_name}"
+                    self.logger.log_image(iteration, f"{tag}/render", img.cpu().numpy())
+                    self.logger.log_image(iteration, f"{tag}/depth",
+                                          colorize_depth(out.depth.cpu().numpy()))
+                    if iteration <= self.opt_cfg.densification_interval:
+                        self.logger.log_image(iteration, f"{tag}/ground_truth", v.image)
+            if self.logger:
+                self.logger.log_eval(iteration, name, float(np.mean(l1s)),
+                                     float(np.mean(psnrs)))
+        if self.logger:
+            alive = state.model.aux.alive.cpu().numpy()
+            opac = get_opacity(state.model.params).cpu().numpy()[alive]
+            self.logger.log_histogram(iteration, "scene/opacity_histogram", opac)
+            self.logger.log_scalar(iteration, "scene/total_points", float(alive.sum()))
+
+    def save_ply(self, state: TrainState, iteration: int) -> None:
+        path = os.path.join(self.model_cfg.model_path, "point_cloud",
+                            f"iteration_{iteration}", "point_cloud.ply")
+        save_gaussian_ply(state.model, path)

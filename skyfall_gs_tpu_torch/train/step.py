@@ -26,7 +26,8 @@ from skyfall_gs_tpu_torch.model.densify import add_densification_stats
 from skyfall_gs_tpu_torch.model.gaussians import (
     GaussianModelState,
     GaussianParams,
-    field_names,
+    flat_fields,
+    from_flat,
     get_opacity,
     map_fields,
 )
@@ -90,6 +91,7 @@ def _build_grads_fn(
     ray_jitter: bool = False,
     resample_gt: bool = False,
     use_depth: bool = True,
+    testing_render: bool = False,
     bin_capacity: Optional[int] = None,
 ):
     """Build the per-view loss/gradient core: everything from render
@@ -104,6 +106,9 @@ def _build_grads_fn(
 
     With ``ray_jitter`` the per-pixel subpixel offsets are drawn uniform in
     [-0.5, 0.5) from ``generator`` unless ``subpixel_offset`` gives them.
+    ``testing_render`` renders with the fixed test-time appearance
+    embedding instead of the camera's own.  The gradients cover every
+    present parameter leaf, the appearance MLP and embeddings included.
     """
 
     def grads_fn(model: GaussianModelState, camera: Camera, gt_image, gt_mask,
@@ -128,7 +133,8 @@ def _build_grads_fn(
         m = dataclasses.replace(model, params=leaves)
         out = render(m, camera, bg, kernel_size=kernel_size, subpixel_offset=subpix,
                      mean2d_dummy=dummy, mean2d_abs_dummy=abs_dummy,
-                     backend=backend, bin_capacity=bin_capacity,
+                     backend=backend, testing=testing_render,
+                     bin_capacity=bin_capacity,
                      # the normal channel is not part of any training loss
                      with_normals=False)
         image = out.color * gt_mask[..., None]
@@ -145,9 +151,10 @@ def _build_grads_fn(
         o_loss = opacity_entropy_loss(get_opacity(leaves), model.aux.alive)
         total = total + lambda_opacity * o_loss
 
-        names = field_names(GaussianParams)
-        grads = torch.autograd.grad(
-            total, [getattr(leaves, k) for k in names] + [dummy, abs_dummy])
+        paths, tensors = zip(*flat_fields(leaves))
+        inputs = [*tensors, dummy, abs_dummy]
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+            inputs, torch.autograd.grad(total, inputs, allow_unused=True))]
         aux = {
             "l1": ll1.detach(),
             "depth_loss": d_loss.detach(),
@@ -156,7 +163,7 @@ def _build_grads_fn(
             "psnr": psnr(image.detach(), gt.detach()),
             "overflow": out.overflow,
         }
-        return (total.detach(), aux, GaussianParams(**dict(zip(names, grads[:-2]))),
+        return (total.detach(), aux, from_flat(GaussianParams, zip(paths, grads[:-2])),
                 (grads[-2], grads[-1]))
 
     return grads_fn
@@ -185,8 +192,9 @@ def make_train_step(opt_cfg, **kwargs):
             generator, subpixel_offset)
         add_densification_stats(model.aux, g_mean2d, g_abs, aux["radii"],
                                 camera.width, camera.height)
-        adam_update(grads, state.opt, model.params, make_lr_tree(opt_cfg, xyz_lr),
-                    weight_decay_tree=make_weight_decay_tree(opt_cfg))
+        adam_update(grads, state.opt, model.params,
+                    make_lr_tree(model.params, opt_cfg, xyz_lr),
+                    weight_decay_tree=make_weight_decay_tree(model.params, opt_cfg))
         state.step += 1
         metrics = StepMetrics(
             loss=loss,
@@ -204,7 +212,8 @@ def make_train_step(opt_cfg, **kwargs):
 
 def make_eval_render(kernel_size: float = 0.1, backend: str = "tiled",
                      bin_capacity: Optional[int] = None):
-    """No-grad render for test-time evaluation (the forward kernel only).
+    """No-grad render for test-time evaluation (the forward kernel only),
+    with the fixed test-time appearance embedding.
 
     ``bin_capacity`` should come from render.measure_bin_capacity for the
     target resolution.
@@ -212,7 +221,8 @@ def make_eval_render(kernel_size: float = 0.1, backend: str = "tiled",
 
     @torch.no_grad()
     def fn(model: GaussianModelState, camera: Camera, bg):
-        return render(model, camera, bg, kernel_size=kernel_size, backend=backend,
-                      bin_capacity=bin_capacity, inference=(backend == "tiled"))
+        return render(model, camera, bg, kernel_size=kernel_size, testing=True,
+                      backend=backend, bin_capacity=bin_capacity,
+                      inference=(backend == "tiled"))
 
     return fn

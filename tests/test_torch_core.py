@@ -51,10 +51,11 @@ def jax_state_to_numpy(state) -> dict:
     for part in (state.params, state.aux):
         for f in dataclasses.fields(part):
             v = getattr(part, f.name)
-            d[f.name] = None if v is None else np.asarray(v)
+            d[f.name] = None if v is None else jax.tree.map(np.asarray, v)
     d.update(active_sh_degree=state.active_sh_degree,
              max_sh_degree=state.max_sh_degree,
-             spatial_lr_scale=state.spatial_lr_scale)
+             spatial_lr_scale=state.spatial_lr_scale,
+             appearance=tuple(state.appearance))
     return d
 
 
@@ -180,11 +181,25 @@ class TestGaussianState:
         _close(to.grad, go, atol=1e-6, rtol=1e-5)
 
     def test_appearance_state_not_ported(self, rng):
-        d = jax_state_to_numpy(jg.create_from_points(
-            rng.normal(0, 1, (8, 3)), rng.uniform(0, 1, (8, 3)), capacity=16))
-        d["embeddings"] = np.zeros((16, 24), np.float32)
-        with pytest.raises(NotImplementedError):
-            tg.state_from_numpy(d)
+        """Appearance states, once refused, now cross in both directions:
+        the embeddings and the MLP tensors round-trip exactly, with the
+        AppearanceConfig given or inferred from the array shapes."""
+        from skyfall_gs_tpu.model.appearance import AppearanceConfig
+
+        cfg = AppearanceConfig(True, 2, 8, 16)
+        st = jg.create_from_points(rng.normal(0, 1, (8, 3)), rng.uniform(0, 1, (8, 3)),
+                                   appearance=cfg, num_cameras=3, capacity=16)
+        d = jax_state_to_numpy(st)
+        port = tg.state_from_numpy(d)
+        assert port.appearance == cfg
+        assert port.params.appearance_mlp["l1"]["w"].shape == (16, 16)
+        back = tg.state_to_numpy(port)
+        for k in ("embeddings", "appearance_embeddings"):
+            np.testing.assert_array_equal(back[k], d[k])
+        jax.tree.map(np.testing.assert_array_equal, back["appearance_mlp"],
+                     d["appearance_mlp"])
+        del d["appearance"]
+        assert tg.state_from_numpy(d).appearance == cfg
 
 
 def test_config_is_a_copy():

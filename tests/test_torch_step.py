@@ -122,8 +122,8 @@ def test_adam_three_steps_in_place(rng):
                                      jst, jp, joptim.make_lr_tree(jp, cfg, 1e-3),
                                      weight_decay_tree=joptim.make_weight_decay_tree(jp, cfg))
         toptim.adam_update(_params(toptim, {k: _t(v) for k, v in g.items()}), tst, tp,
-                           toptim.make_lr_tree(cfg, 1e-3),
-                           weight_decay_tree=toptim.make_weight_decay_tree(cfg))
+                           toptim.make_lr_tree(tp, cfg, 1e-3),
+                           weight_decay_tree=toptim.make_weight_decay_tree(tp, cfg))
     for k in shapes:
         np.testing.assert_allclose(getattr(tp, k).numpy(), np.asarray(getattr(jp, k)),
                                    atol=1e-6)
@@ -190,15 +190,15 @@ def test_step_gradients_match(scene):
         np.testing.assert_allclose(float(aux[k]), float(aux_j[k]), rtol=1e-5)
     assert float(aux_j["depth_loss"]) > 0
     np.testing.assert_array_equal(aux["radii"].numpy(), np.asarray(aux_j["radii"]))
-    for k in tg.field_names(tg.GaussianParams):
-        assert_rel(getattr(g, k), getattr(g_j, k), 1e-3)
-        assert float(getattr(g, k)[80:].abs().max()) == 0.0, k   # dead slots
+    for k, v in tg.flat_fields(g):
+        assert_rel(v, getattr(g_j, k), 1e-3)
+        assert float(v[80:].abs().max()) == 0.0, k   # dead slots
     assert_rel(gd, gd_j, 1e-3)
     assert_rel(ga, ga_j, 1e-3)
 
 
 def _masked_params_close(port, ref, grads, atol=None):
-    for k in tg.field_names(tg.GaussianParams):
+    for k, _ in tg.flat_fields(port):
         g = np.abs(np.asarray(getattr(grads, k)))
         sel = g > 1e-3 * g.max()
         np.testing.assert_allclose(getattr(port, k).numpy()[sel],
@@ -251,11 +251,11 @@ def test_two_steps_with_ray_jitter_and_resampled_gt(scene):
     np.testing.assert_array_equal(ts.model.aux.denom.numpy(),
                                   np.asarray(ts_j.model.aux.denom))
     assert_rel(ts.model.aux.grad_accum, ts_j.model.aux.grad_accum, 1e-2)
-    for k in tg.field_names(tg.GaussianParams):
-        assert torch.isfinite(getattr(ts.model.params, k)).all()
+    for _, v in tg.flat_fields(ts.model.params):
+        assert torch.isfinite(v).all()
     # The second Adam step is m / sqrt(v) of two gradients that differ by
     # float32 rounding: hold the two-step displacement to 1% of 2 lr.
-    lr = toptim.make_lr_tree(cfg, XYZ_LR)
+    lr = toptim.make_lr_tree(ts.model.params, cfg, XYZ_LR)
     _masked_params_close(ts.model.params, ts_j.model.params, ts_j.opt.mu,
                          atol=tg.map_fields(lambda v: 0.02 * v, lr))
 
