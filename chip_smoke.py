@@ -25,11 +25,29 @@ Phases, one line each:
      median seed's line.  It fails on a non-finite loss or parameter, any
      overflow, a kernel not launched, or a median PSNR under 22.7 dB (the
      lowest JAX seed of the gate).  Seed 0 also writes and reloads a
-     checkpoint and writes a PLY.
-The last two lines before the final one are the kernels' JSON record
-(launches counted over phases 3 and 5) and the card's name and power
-limit; the final line is the JSON result.  Any failure raises, and the
-script exits non-zero without a result.  There is no CPU path.
+     checkpoint and writes a PLY;
+  6. the command-line chain at the bench width: ``write_satellite_scene``
+     writes a 512 px satellite scene (16 views, 2 held out, 40,000 GT
+     points, an init cloud of 13,333, seed 0) to disk, ``cli.train`` trains
+     it from disk (1500 iterations, densify every 150 in (300, 1200)),
+     ``gen_render_path`` writes a 60-frame 1920x1080 orbit, ``render_video``
+     renders it from the checkpoint (RGB) and from the fused PLY (depth),
+     and ``create_fused_ply`` writes the fused PLY and a ``.splat``.  It
+     fails on a missing artifact, a non-finite loss or parameter, any
+     overflow, an unlaunched kernel or a test PSNR under PSNR_FLOOR_DB;
+  7. inference at full width: the 125k-splat stress scene of
+     scripts/bench_entry_budget.py over 4 orbit cameras at 1920x1088, FPS
+     over 30 frames after 3 warm-up frames, full (measured capacity) and
+     under entry budgets of 2M, 1M and 500k entries (PSNR against the full
+     render, kept entries <= budget), each 1080p configuration profiled
+     (device-busy time, launches and the CUDA runtime's host time per
+     frame), the full render at 512x512, and the forward kernel against
+     its plain version on one 1920x1088 frame under the 1M budget.
+Each measurement line carries the card's name and power limit.  The last
+two lines before the final one are the kernels' JSON record (launches
+counted over phases 3, 5, 6 and 7) and the card's name and power limit;
+the final line is the JSON result.  Any failure raises, and the script
+exits non-zero without a result.  There is no CPU path.
 """
 
 from __future__ import annotations
@@ -61,6 +79,24 @@ Q_OPT = dict(densify_from_iter=300, densification_interval=150, densify_until_it
 Q_SEEDS = (0, 1, 2)
 Q_MIN_MEDIAN_PSNR = 22.7   # the lowest of the JAX package's three seeds
 
+# Phase 6: the CLI chain (scripts/make_synthetic_satellite.py's scene).
+SAT_SCENE = dict(size=512, n_points=40_000, n_views=16, seed=0)
+TRAIN_ITERS = 1500
+TRAIN_FLAGS = ["--eval", "--iterations", str(TRAIN_ITERS), "--densify_from_iter", "300",
+               "--densification_interval", "150", "--densify_until_iter", "1200"]
+# The JAX package's cli.train on the CPU, on the same 512 px scene (written by
+# write_satellite_scene) with the same flags and seed, reached a test PSNR of
+# 28.39 dB (30,321 splats); the floor is that minus 1 dB.
+PSNR_FLOOR_DB = 27.39
+PATH_FLAGS = ["--width", "1920", "--height", "1080", "--num_frame", "60",
+              "--elevation", "45", "--radius", "300", "--fov", "60"]
+
+# Phase 7: the 125k-splat stress scene (scripts/bench_entry_budget.py:37-54).
+STRESS_SPLATS = 125_000
+STRESS_WARMUP = 3
+STRESS_FRAMES = 30
+BUDGETS = (2_000_000, 1_000_000, 500_000)
+
 
 def log(phase, msg: str) -> None:
     print(f"phase {phase}: {msg}", flush=True)
@@ -68,6 +104,23 @@ def log(phase, msg: str) -> None:
 
 def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+def module_version(name: str) -> str:
+    try:
+        mod = __import__(name)
+    except ImportError as e:
+        return f"missing ({e})"
+    return getattr(mod, "__version__", "present")
+
+
+def reset_launches(rt) -> None:
+    rt.composite_fwd.launches = 0
+    rt.composite_bwd.launches = 0
+
+
+def launches_of(rt) -> dict:
+    return {"fwd": rt.composite_fwd.launches, "bwd": rt.composite_bwd.launches}
 
 
 def cuda_ms(fn, reps: int, torch) -> float:
@@ -173,8 +226,7 @@ def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: boo
     last = (Q_ITERS,) if snapshots else ()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rt.composite_fwd.launches = 0
-    rt.composite_bwd.launches = 0
+    reset_launches(rt)
     t0 = time.perf_counter()
     state = trainer.train(state, iterations=Q_ITERS, test_iterations=last,
                           save_iterations=last, checkpoint_iterations=last)
@@ -187,7 +239,7 @@ def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: boo
                             .permute(2, 0, 1),
                             torch.tensor(v.image, device=trainer.device).permute(2, 0, 1)))
                  for v in scene.test_views]
-    launches = {"fwd": rt.composite_fwd.launches, "bwd": rt.composite_bwd.launches}
+    launches = launches_of(rt)
     peak = torch.cuda.max_memory_allocated() / 2**30
     logger.close()
 
@@ -250,6 +302,292 @@ def quality_phase(torch, rt, dev, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# Phase 6: the command-line chain on a scene read from disk
+# ----------------------------------------------------------------------------
+
+def mib(path: Path) -> str:
+    if path.is_dir():
+        return f"{sum(f.stat().st_size for f in path.iterdir()) / 2**20:.2f} MiB (PNG dir)"
+    return f"{path.stat().st_size / 2**20:.2f} MiB"
+
+
+def cli_phase(torch, rt, dev, card: str, tmp: Path) -> dict:
+    """Phase 6; returns the kernels' launch counts."""
+    from skyfall_gs_tpu_torch.cli import create_fused_ply, gen_render_path, render_video
+    from skyfall_gs_tpu_torch.cli import train as train_cli
+    from skyfall_gs_tpu_torch.io.scene import load_scene
+    from skyfall_gs_tpu_torch.io.synthetic import write_satellite_scene
+    from skyfall_gs_tpu_torch.model.gaussians import flat_fields
+    from skyfall_gs_tpu_torch.ops.ssim import ssim
+
+    scene_dir, model = tmp / "scene", tmp / "model"
+    t_phase = time.perf_counter()
+    reset_launches(rt)
+    n_init = write_satellite_scene(str(scene_dir), device=dev, **SAT_SCENE)
+    t_write = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    scene = load_scene(str(scene_dir), eval_split=True, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    n_views = (scene.num_train, len(scene.test_views))
+    assert len(scene.points) == n_init and n_views == (14, 2), (len(scene.points), n_views)
+    del scene
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, state = train_cli.main(
+        ["-s", str(scene_dir), "-m", str(model), *TRAIN_FLAGS, "--device", DEVICE,
+         "--test_iterations", str(TRAIN_ITERS), "--save_iterations", str(TRAIN_ITERS),
+         "--checkpoint_iterations", str(TRAIN_ITERS), "--quiet"])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    with open(model / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if r["type"] == "step"]
+    bad = [r["iter"] for r in steps if not np.isfinite([r["loss"], r["psnr"]]).all()]
+    assert steps and not bad, f"non-finite loss at iterations {bad[:5]}"
+    for k, v in flat_fields(state.model.params):
+        assert bool(torch.isfinite(v).all()), f"non-finite parameter {k}"
+    max_overflow = int(trainer.max_overflow)
+    assert max_overflow == 0, f"binning overflow {max_overflow} in training"
+    psnr = [r["psnr"] for r in records if r["type"] == "eval" and r["split"] == "test"][-1]
+    with torch.no_grad():
+        ssims = [float(ssim(torch.clamp(trainer._eval_render(state.model, v.camera,
+                                                              trainer.bg).color, 0, 1)
+                            .permute(2, 0, 1),
+                            torch.tensor(v.image, device=dev).permute(2, 0, 1)))
+                 for v in trainer.scene.test_views]
+    it_s = TRAIN_ITERS / steps[-1]["elapsed"]
+    n_splats = int(state.model.num_alive)
+    train_launches = launches_of(rt)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    path = gen_render_path.main(["--output_folder", str(tmp / "paths"), *PATH_FLAGS])
+    path_kw = dict(zip(PATH_FLAGS[::2], PATH_FLAGS[1::2]))
+    ckpt = model / f"chkpnt{TRAIN_ITERS}.npz"
+    torch.cuda.reset_peak_memory_stats()
+    _, fps_ckpt = render_video.main(["--checkpoint", str(ckpt), "--camera_path", path,
+                                     "--out", str(tmp / "ckpt_rgb.mp4"), "--device", DEVICE])
+    peak_render = torch.cuda.max_memory_allocated() / 2**30
+    create_fused_ply.main(["-c", str(ckpt), "-o", str(tmp / "fused.ply")])
+    create_fused_ply.main(["-c", str(ckpt), "-o", str(tmp / "fused.splat")])
+    _, fps_ply = render_video.main(["--ply", str(tmp / "fused.ply"), "--camera_path", path,
+                                    "--out", str(tmp / "ply_depth.mp4"), "--mode", "depth",
+                                    "--device", DEVICE])
+    launches = launches_of(rt)
+    artifacts = {
+        "checkpoint": ckpt,
+        "ply": model / "point_cloud" / f"iteration_{TRAIN_ITERS}" / "point_cloud.ply",
+        "input.ply": model / "input.ply", "cameras.json": model / "cameras.json",
+        "cfg_args.json": model / "cfg_args.json", "fused.ply": tmp / "fused.ply",
+        "fused.splat": tmp / "fused.splat"}
+    for name in ("ckpt_rgb", "ply_depth"):   # an MP4, or a PNG directory without cv2
+        mp4, pngs = tmp / f"{name}.mp4", tmp / name
+        artifacts[name] = mp4 if mp4.exists() else pngs
+    for name, p in artifacts.items():
+        assert p.exists() and (p.is_dir() and any(p.iterdir()) or p.stat().st_size > 0), \
+            f"missing artifact {name}: {p}"
+    assert launches["fwd"] > train_launches["fwd"] > 0 and train_launches["bwd"] > 0, launches
+    log(6, f"CLI chain on [{card}]: wrote the {SAT_SCENE['size']} px satellite scene in "
+           f"{t_write:.2f} s; load_scene {t_load:.3f} s, views {n_views[0]} train / "
+           f"{n_views[1]} test, init points {n_init}; cli.train {TRAIN_ITERS} it in "
+           f"{t_train:.2f} s wall ({it_s:.2f} it/s over the loop), test PSNR {psnr:.3f} dB "
+           f"(floor {PSNR_FLOOR_DB} dB), SSIM {float(np.mean(ssims)):.4f}, final splats "
+           f"{n_splats}, max overflow {max_overflow}, peak memory {peak_train:.3f} GiB; "
+           f"{path_kw['--width']}x{path_kw['--height']} x {path_kw['--num_frame']}-frame "
+           f"trajectory FPS: checkpoint rgb {fps_ckpt:.2f}, fused PLY "
+           f"depth {fps_ply:.2f}, peak memory {peak_render:.3f} GiB; artifacts "
+           + ", ".join(f"{k} {mib(p)}" for k, p in artifacts.items())
+           + f"; launches fwd {launches['fwd']} bwd {launches['bwd']}; phase 6 took "
+             f"{time.perf_counter() - t_phase:.1f} s")
+    assert psnr >= PSNR_FLOOR_DB, f"test PSNR {psnr:.3f} dB under the floor {PSNR_FLOOR_DB}"
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# Phase 7: inference at full width on the 125k-splat stress scene
+# ----------------------------------------------------------------------------
+
+def stress_scene(dev):
+    """scripts/bench_entry_budget.py's untrained 125k-splat disk scene."""
+    from skyfall_gs_tpu_torch.model.gaussians import create_from_points
+
+    rng = np.random.default_rng(0)
+    r = 256 * np.sqrt(rng.uniform(0, 1, STRESS_SPLATS))
+    th = rng.uniform(0, 2 * np.pi, STRESS_SPLATS)
+    pts = np.stack([r * np.cos(th), r * np.sin(th),
+                    rng.uniform(0, 40, STRESS_SPLATS)], 1).astype(np.float32)
+    cols = rng.uniform(0, 1, (STRESS_SPLATS, 3)).astype(np.float32)
+    state = create_from_points(pts, cols, capacity=STRESS_SPLATS, device=dev)
+    state.active_sh_degree = 3
+    state.aux.filter_3d.fill_(0.3)
+    return state
+
+
+def render_fps(torch, state, cams, **kw):
+    """FPS over STRESS_FRAMES frames cycling ``cams`` after STRESS_WARMUP
+    warm-up frames, between two synchronizations, every frame held on the
+    card until the clock stops (as ``render_trajectory`` holds them);
+    returns (fps, the first frame of each camera, the largest overflow, the
+    caching allocator's cudaMalloc calls in the timed loop)."""
+    from skyfall_gs_tpu_torch.model.render import render
+
+    bg = torch.zeros(3, device=state.params.xyz.device)
+
+    def frame(cam):
+        out = render(state, cam, bg, kernel_size=0.1, testing=True, inference=True, **kw)
+        return torch.clamp(out.color, 0.0, 1.0), out.overflow
+
+    with torch.no_grad():
+        for i in range(STRESS_WARMUP):
+            frame(cams[i % len(cams)])
+        torch.cuda.synchronize()
+        mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        t0 = time.perf_counter()
+        outs = [frame(cams[i % len(cams)]) for i in range(STRESS_FRAMES)]
+        torch.cuda.synchronize()
+    fps = STRESS_FRAMES / (time.perf_counter() - t0)
+    mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - mallocs
+    return (fps, [o[0] for o in outs[:len(cams)]],
+            int(torch.stack([o[1] for o in outs]).max()), mallocs)
+
+
+def profile_frames(torch, state, cams, n: int = 8, **kw) -> dict:
+    """torch.profiler over ``n`` frames cycling ``cams``, held as in
+    ``render_fps``: wall and device-busy ms per frame, kernel launches per
+    frame, the kernels with the most device time and the CUDA runtime calls
+    with the most host time."""
+    from skyfall_gs_tpu_torch.model.render import render
+
+    bg = torch.zeros(3, device=state.params.xyz.device)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [render(state, cams[i % len(cams)], bg, kernel_size=0.1, testing=True,
+                       inference=True, **kw).color for i in range(n)]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000 / n
+    del outs
+    events = prof.key_averages()
+    kernels = [(e.key, e.device_time_total / 1000 / n, e.count / n) for e in events
+               if e.device_time_total > 0 and not e.key.startswith(("aten::", "cuda"))]
+    runtime = [(e.key, e.self_cpu_time_total / 1000 / n, e.count / n) for e in events
+               if e.key.startswith("cuda")]
+
+    def top(rows, k):
+        rows.sort(key=lambda r: -r[1])
+        return "; ".join(f"{name[:60]} {ms:.3f} ms x{c:g}" for name, ms, c in rows[:k])
+
+    busy = sum(r[1] for r in kernels)
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle": max(0.0, 1 - busy / wall_ms),
+            "launches": sum(c for name, _, c in runtime if name.startswith("cudaLaunchKernel")),
+            "kernels": top(kernels, 8), "runtime": top(runtime, 5)}
+
+
+def profile_summary(p: dict) -> str:
+    return (f"under the profiler {p['wall_ms']:.3f} ms/frame wall, device busy "
+            f"{p['busy_ms']:.3f} ms (idle share {p['idle']:.3f}), {p['launches']:g} kernel "
+            f"launches/frame")
+
+
+def stress_phase(torch, rt, dev, card: str) -> tuple[dict, float]:
+    """Phase 7; returns the kernels' launch counts and the forward kernel's
+    max abs error against its plain version on a 1080p frame."""
+    from skyfall_gs_tpu_torch.core.camera import orbit_cameras
+    from skyfall_gs_tpu_torch.model.gaussians import (
+        opacity_with_3d_filter, scaling_with_3d_filter)
+    from skyfall_gs_tpu_torch.model.render import compute_colors, measure_bin_capacity
+    from skyfall_gs_tpu_torch.ops.binning import num_tiles, per_splat_entries
+    from skyfall_gs_tpu_torch.ops.losses import psnr
+    from skyfall_gs_tpu_torch.ops.projection import project_gaussians
+    from skyfall_gs_tpu_torch.ops.rasterize import _apply_entry_budget
+
+    t_phase = time.perf_counter()
+    state = stress_scene(dev)
+    launches = {"fwd": 0, "bwd": 0}
+    for w, h in ((1920, 1088), (512, 512)):
+        cams = orbit_cameras([0, 0, 0], 50.0, 500.0, num_cams=4, width=w, height=h,
+                             fov_deg=60.0, uid_base=0, device=dev)
+        cap = measure_bin_capacity(state, cams, kernel_size=0.1)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(rt)
+        fps_full, full, overflow, mallocs = render_fps(torch, state, cams, bin_capacity=cap)
+        for k, v in launches_of(rt).items():
+            launches[k] += v
+        assert overflow == 0, f"{w}x{h} full render overflow {overflow}"
+        log(7, f"stress scene {STRESS_SPLATS} splats {w}x{h} on [{card}]: full render at "
+               f"measured capacity {cap}: {fps_full:.2f} FPS ({1000 / fps_full:.3f} ms/frame, "
+               f"{STRESS_FRAMES} frames over 4 cameras after {STRESS_WARMUP} warm-up), "
+               f"overflow 0, cudaMalloc calls in the timed loop {mallocs}, peak memory "
+               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if w != 1920:
+            continue
+        for budget in BUDGETS:
+            kept = []
+            with torch.no_grad():
+                for cam in cams:
+                    proj = project_gaussians(
+                        state.params.xyz, scaling_with_3d_filter(state.params, state.aux.filter_3d),
+                        state.params.rotation,
+                        opacity_with_3d_filter(state.params, state.aux.filter_3d), cam,
+                        kernel_size=0.1, mask=state.aux.alive)
+                    proj = _apply_entry_budget(proj, cam, budget)
+                    kept.append(int(per_splat_entries(proj.mean2d, proj.radius, h, w,
+                                                      radius_xy=proj.radius_xy).sum()))
+            assert max(kept) <= budget, (budget, kept)
+            reset_launches(rt)
+            fps, imgs, overflow, mallocs = render_fps(torch, state, cams, entry_budget=budget)
+            for k, v in launches_of(rt).items():
+                launches[k] += v
+            assert overflow == 0, f"budget {budget}: overflow {overflow}"
+            prof = profile_frames(torch, state, cams, entry_budget=budget)
+            q = [float(psnr(a.permute(2, 0, 1), b.permute(2, 0, 1))) for a, b in zip(imgs, full)]
+            log(7, f"stress scene 1920x1088 on [{card}]: entry_budget {budget}: {fps:.2f} FPS "
+                   f"({fps / fps_full:.2f}x full), PSNR vs full {float(np.mean(q)):.2f} dB "
+                   f"(per camera {[round(v, 2) for v in q]}), kept entries {kept} <= budget, "
+                   f"overflow 0, cudaMalloc calls in the timed loop {mallocs}; "
+                   + profile_summary(prof))
+        prof = profile_frames(torch, state, cams, bin_capacity=cap)
+        log(7, f"profile of the full 1920x1088 render on [{card}]: {profile_summary(prof)}; "
+               f"top kernels per frame: {prof['kernels']}; host CUDA runtime calls per "
+               f"frame: {prof['runtime']}")
+
+    # The forward kernel against its plain version on one 1080p frame under
+    # the 1M budget (launches for this comparison are not counted).
+    cam = orbit_cameras([0, 0, 0], 50.0, 500.0, num_cams=4, width=1920, height=1088,
+                        fov_deg=60.0, uid_base=0, device=dev)[1]
+    with torch.no_grad():
+        proj = project_gaussians(
+            state.params.xyz, scaling_with_3d_filter(state.params, state.aux.filter_3d),
+            state.params.rotation, opacity_with_3d_filter(state.params, state.aux.filter_3d),
+            cam, kernel_size=0.1, mask=state.aux.alive)
+        proj = _apply_entry_budget(proj, cam, 1_000_000)
+        chans = torch.cat([compute_colors(state, cam, testing=True), proj.depth[:, None],
+                           torch.zeros_like(state.params.xyz)], 1)
+        table, binned, offx, offy = rt.composite_inputs(
+            proj.mean2d, proj.conic, proj.depth, proj.radius, proj.opacity, chans,
+            1088, 1920, cap=1_000_000, radius_xy=proj.radius_xy)
+        args = (table, binned.gather_idx, binned.tile_start, binned.tile_count, offx, offy,
+                num_tiles(1088, 1920)[1])
+        out_k, tf_k = rt.composite_fwd(*args)
+        t0 = time.perf_counter()
+        out_p, tf_p = rt.composite_fwd_torch(*args)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    err = max(float((out_k - out_p).abs().max()), float((tf_k - tf_p).abs().max()))
+    assert int(binned.overflow) == 0 and int(binned.num_entries) <= 1_000_000
+    log(7, f"forward kernel vs plain on one 1920x1088 frame under entry_budget 1000000 "
+           f"({int(binned.num_entries)} entries, max tile {int(binned.tile_count.max())}) on "
+           f"[{card}]: max abs {err:.3e} (tol 1e-4), plain version {t_plain:.2f} s; phase 7 "
+           f"took {time.perf_counter() - t_phase:.1f} s")
+    assert err <= 1e-4, err
+    return launches, err
+
+
+# ----------------------------------------------------------------------------
 # Main
 # ----------------------------------------------------------------------------
 
@@ -288,6 +626,8 @@ def main() -> int:
     nvcc = run([rt.nvcc_path(), "--version"]).splitlines()[-1]
     log(0, f"card [{card}] torch {torch.__version__} cuda {torch.version.cuda} "
            f"nvcc [{nvcc}] devices {torch.cuda.device_count()}")
+    log(0, f"image libraries: PIL {module_version('PIL')}, cv2 {module_version('cv2')} "
+           "(the port reads PNG scenes with io/png.py and needs neither)")
 
     # -- phase 1: build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -363,8 +703,7 @@ def main() -> int:
     metrics = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rt.composite_fwd.launches = 0
-    rt.composite_bwd.launches = 0
+    reset_launches(rt)
     t_wall = time.perf_counter()
     for i in range(n_steps):
         if i == WARMUP_STEPS:
@@ -375,7 +714,7 @@ def main() -> int:
     events[n_steps].record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_wall
-    launches = {"fwd": rt.composite_fwd.launches, "bwd": rt.composite_bwd.launches}
+    launches = launches_of(rt)
     step_ms = [events[i].elapsed_time(events[i + 1])
                for i in range(WARMUP_STEPS, n_steps)]
     losses = torch.stack([m.loss for m in metrics])
@@ -474,10 +813,23 @@ def main() -> int:
     for k, n in quality_phase(torch, rt, dev, card).items():
         launches[k] += n
 
+    # -- phase 6: the CLI chain on a scene read from disk -------------------------
+    with tempfile.TemporaryDirectory(prefix="skyfall_cli_") as tmp:
+        counts = cli_phase(torch, rt, dev, card, Path(tmp))
+    for k, n in counts.items():
+        launches[k] += n
+    torch.cuda.empty_cache()
+
+    # -- phase 7: inference at full width ---------------------------------------
+    counts, fwd_err_1080p = stress_phase(torch, rt, dev, card)
+    for k, n in counts.items():
+        launches[k] += n
+
     kernels = [
         {"name": "composite_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "skyfall_gs_tpu/ops/rasterize_tiled.py:506",
-         "launches": launches["fwd"], "max_abs_err": bench["fwd_max_abs"],
+         "launches": launches["fwd"],
+         "max_abs_err": max(bench["fwd_max_abs"], fwd_err_1080p),
          "ms": ms["fwd"], "plain_ms": ms["fwd_plain"]},
         {"name": "composite_bwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "skyfall_gs_tpu/ops/rasterize_tiled.py:544",

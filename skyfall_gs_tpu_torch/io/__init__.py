@@ -1,2 +1,2 @@
-"""Scene containers, the synthetic city scene and PLY I/O (port of
-skyfall_gs_tpu.io).  The on-disk scene readers are not ported yet."""
+"""Scene readers and containers, synthetic scenes, PNG, PLY and ``.splat``
+I/O (port of skyfall_gs_tpu.io)."""

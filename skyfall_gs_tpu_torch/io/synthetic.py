@@ -1,21 +1,29 @@
-"""In-memory synthetic scenes for smoke tests and the quality gate.
+"""Synthetic scenes for smoke tests, the quality gate and the CLI chain.
 
-Port of ``skyfall_gs_tpu/io/synthetic.py``: ground-truth Gaussians render
-the "captures", and training must recover them from a corrupted
+Port of ``skyfall_gs_tpu/io/synthetic.py`` and of
+``scripts/make_synthetic_satellite.py``: ground-truth Gaussians render the
+"captures", and training must recover them from a corrupted
 initialization.  The numpy draws are the JAX package's, in the same order,
 so the scene geometry, colors and initial point cloud are identical; the
 ground truth is rendered by the port's rasterizer on ``device``.
+``make_city_scene`` builds a scene in memory; ``write_satellite_scene``
+writes one to disk in the satellite layout the readers consume.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
 
 from skyfall_gs_tpu_torch.core.camera import orbit_cameras
+from skyfall_gs_tpu_torch.io.colmap import write_points3d_text
+from skyfall_gs_tpu_torch.io.png import write_png
 from skyfall_gs_tpu_torch.io.scene import SceneData, View
 from skyfall_gs_tpu_torch.model.gaussians import create_from_points
-from skyfall_gs_tpu_torch.model.render import render
+from skyfall_gs_tpu_torch.model.render import measure_bin_capacity, render
 
 
 def make_city_scene(
@@ -85,3 +93,79 @@ def test_psnr(trainer, scene: SceneData, state) -> float:
         mse = torch.mean((img - gt) ** 2)
         vals.append(float(-10 * torch.log10(torch.clamp_min(mse, 1e-10))))
     return float(np.mean(vals))
+
+
+@torch.no_grad()
+def write_satellite_scene(out: str, size: int = 256, n_points: int = 40_000,
+                          n_views: int = 16, seed: int = 0, device="cpu") -> int:
+    """Write a procedural city block in the satellite layout: images
+    (PNG), ``masks/*.npy``, ``depths_moge/*.npy``, ``transforms_{train,test}
+    .json`` (fl/cx/cy and an identity global R/T fix) and a noisy
+    ``points3D.txt`` init cloud of ``n_points // 3`` points.  The recipe and
+    draws are ``scripts/make_synthetic_satellite.py``'s; the ground truth is
+    rendered on ``device`` (the forward kernel on a GPU).  Returns the
+    init cloud's point count.
+
+    The ground truth renders at a binning capacity measured over the views:
+    the script renders at the shape-only default, which at 512 px drops
+    ~16% of the entries of each view (the highest-index splats, i.e.
+    buildings) from its ground truth."""
+    rng = np.random.default_rng(seed)
+    n = n_points
+    # city block: ground disk + boxes ("buildings") with height
+    r = 220 * np.sqrt(rng.uniform(0, 1, n // 2))
+    th = rng.uniform(0, 2 * np.pi, n // 2)
+    ground = np.stack([r * np.cos(th), r * np.sin(th), rng.normal(0, 0.5, n // 2)], 1)
+    n_bld = 30
+    centers = rng.uniform(-180, 180, (n_bld, 2))
+    heights = rng.uniform(10, 60, n_bld)
+    bidx = rng.integers(0, n_bld, n - n // 2)
+    bld = np.stack([
+        centers[bidx, 0] + rng.normal(0, 8, n - n // 2),
+        centers[bidx, 1] + rng.normal(0, 8, n - n // 2),
+        heights[bidx] * rng.uniform(0, 1, n - n // 2),
+    ], 1)
+    pts = np.concatenate([ground, bld]).astype(np.float32)
+    cols = rng.uniform(0.15, 0.85, (n, 3)).astype(np.float32)
+
+    gt = create_from_points(pts, cols, capacity=-(-n // 1024) * 1024, init_opacity=0.9,
+                            device=device)
+    gt.aux.filter_3d.fill_(0.5)
+    cams = orbit_cameras([0, 0, 0], 70.0, 600.0, num_cams=n_views, width=size,
+                         height=size, fov_deg=45.0, uid_base=0, device=device)
+    bg = torch.zeros(3, device=device)
+    cap = measure_bin_capacity(gt, cams)
+
+    for sub in ("masks", "depths_moge"):
+        os.makedirs(os.path.join(out, sub), exist_ok=True)
+    frames = []
+    focal = size / (2 * np.tan(np.radians(45.0) / 2))
+    for i, cam in enumerate(cams):
+        rendered = render(gt, cam, bg, inference=True, testing=True, bin_capacity=cap)
+        img = np.clip(rendered.color.cpu().numpy(), 0, 1)
+        alpha = rendered.alpha.cpu().numpy()
+        depth = rendered.depth.cpu().numpy() / np.maximum(alpha, 1e-6)
+        name = f"img_{i:03d}"
+        write_png(os.path.join(out, name + ".png"), (img * 255).astype(np.uint8))
+        np.save(os.path.join(out, "masks", name + ".npy"), (alpha > 0.5).astype(np.uint8))
+        np.save(os.path.join(out, "depths_moge", name + ".npy"), depth.astype(np.float32))
+        c2w = np.linalg.inv(cam.world_view.cpu().numpy().astype(np.float64))
+        frames.append({
+            "file_path": name + ".png",
+            "transform_matrix_rotated": c2w.tolist(),
+            "fl_x": focal, "fl_y": focal,
+            "cx": size / 2, "cy": size / 2,
+        })
+
+    n_test = max(n_views // 8, 1)
+    base = {"R": np.eye(3).tolist(), "T": [0.0, 0.0, 0.0]}
+    with open(os.path.join(out, "transforms_train.json"), "w") as f:
+        json.dump({**base, "frames": frames[n_test:]}, f)
+    with open(os.path.join(out, "transforms_test.json"), "w") as f:
+        json.dump({**base, "frames": frames[:n_test]}, f)
+
+    # noisy sparse init cloud
+    sub = rng.choice(n, n // 3, replace=False)
+    noisy = pts[sub] + rng.normal(0, 1.0, (len(sub), 3)).astype(np.float32)
+    write_points3d_text(os.path.join(out, "points3D.txt"), noisy, cols[sub] * 255)
+    return len(sub)

@@ -100,8 +100,10 @@ def render(
     bin_capacity: Optional[int] = None,
     inference: bool = False,
     with_normals: bool = True,
+    entry_budget: Optional[int] = None,
 ) -> RenderOutput:
-    """Render one view from the model state."""
+    """Render one view from the model state (``entry_budget``: the
+    inference-only LOD cap of ``ops.rasterize.rasterize``)."""
     scales, opac = _activated(state, with_3d_filter)
     return rasterize(
         state.params.xyz, scales, state.params.rotation, opac,
@@ -120,4 +122,5 @@ def render(
         bin_capacity=bin_capacity,
         inference=inference,
         with_normals=with_normals,
+        entry_budget=entry_budget,
     )

@@ -9,17 +9,26 @@ as in the JAX package: ``mean2d_dummy`` (N, 2) zeros are added to the
 projected means, so the gradient w.r.t. it is d(loss)/d(mean2d); the tiled
 backend routes the AbsGS absolute screen gradient into
 ``mean2d_abs_dummy``'s gradient.
+
+``entry_budget`` is the inference-only LOD of the JAX package
+(``_apply_entry_budget``): plain tensor ops, no kernel.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from skyfall_gs_tpu_torch.core.camera import Camera
-from skyfall_gs_tpu_torch.ops.projection import project_gaussians, smallest_axis_normals
+from skyfall_gs_tpu_torch.ops.binning import per_splat_entries
+from skyfall_gs_tpu_torch.ops.projection import (
+    ProjectedGaussians,
+    project_gaussians,
+    smallest_axis_normals,
+)
 from skyfall_gs_tpu_torch.ops.rasterize_ref import composite_reference
 from skyfall_gs_tpu_torch.ops.rasterize_tiled import composite_tiled
 
@@ -42,6 +51,42 @@ class RenderOutput:
         return self.radii > 0
 
 
+def _apply_entry_budget(proj: ProjectedGaussians, camera: Camera,
+                        budget: int) -> ProjectedGaussians:
+    """Greedy entry-budgeted LOD: keep splats by contribution per entry.
+
+    Render time scales with duplicated (splat, tile) entries, so the LOD
+    axis is an entry budget.  Value = opacity x cutoff-AABB pixel area;
+    cost = touched tiles.  Splats are ranked by value / cost (a STABLE sort,
+    as ``jnp.argsort``: culled splats all tie at -1 and equal-area splats
+    tie too), then two greedy passes each drop the splats whose own cost
+    exceeds the remaining budget (so one oversized splat cannot block the
+    cheap tail behind it) and keep the eligible prefix that fits.  The
+    dropped splats get radius 0.
+    """
+    counts = per_splat_entries(proj.mean2d, proj.radius, camera.height, camera.width,
+                               radius_xy=proj.radius_xy)
+    area = (proj.radius_xy[:, 0] * proj.radius_xy[:, 1]).to(torch.float32)
+    value = proj.opacity * area
+    ratio = torch.where(counts > 0, value / torch.clamp_min(counts, 1), -1.0)
+    order = torch.argsort(-ratio, stable=True)
+    c_sorted = counts[order]
+    keep_sorted = torch.zeros_like(c_sorted, dtype=torch.bool)
+    rem = torch.tensor(budget, dtype=c_sorted.dtype, device=c_sorted.device)
+    for _ in range(2):
+        elig = ~keep_sorted & (c_sorted > 0) & (c_sorted <= rem)
+        cum = torch.cumsum(torch.where(elig, c_sorted, 0), 0)
+        keep_sorted = keep_sorted | (elig & (cum <= rem))
+        rem = budget - torch.sum(torch.where(keep_sorted, c_sorted, 0))
+    keep = torch.zeros_like(keep_sorted)
+    keep[order] = keep_sorted
+    return dataclasses.replace(
+        proj,
+        radius=torch.where(keep, proj.radius, 0),
+        radius_xy=torch.where(keep[:, None], proj.radius_xy, 0),
+    )
+
+
 def rasterize(
     means3d: torch.Tensor,
     scales: torch.Tensor,
@@ -60,6 +105,7 @@ def rasterize(
     backend: str = "tiled",
     bin_capacity: Optional[int] = None,
     inference: bool = False,
+    entry_budget: Optional[int] = None,
 ) -> RenderOutput:
     """Render one view.
 
@@ -75,11 +121,23 @@ def rasterize(
         backend: "tiled" (the compositing kernels) or "reference" (oracle).
         inference: tiled backend only — the forward kernel alone, outside
             autograd (eval and video renders).
+        entry_budget: inference-only cap on duplicated (splat, tile)
+            entries, spent greedily by contribution per entry (see
+            ``_apply_entry_budget``); a lossy speed/quality trade.  With
+            ``bin_capacity=None`` the capacity is the budget rounded up to
+            256, so nothing overflows.
     """
     proj = project_gaussians(
         means3d, scales, quats, opacities, camera,
         kernel_size=kernel_size, mask=mask, scaling_modifier=scaling_modifier,
     )
+    if entry_budget is not None:
+        if not inference:
+            raise ValueError("entry_budget is an inference-only LOD mode; "
+                             "training must composite every live splat")
+        proj = _apply_entry_budget(proj, camera, entry_budget)
+        if bin_capacity is None:
+            bin_capacity = -(-entry_budget // 256) * 256
     mean2d = proj.mean2d
     if mean2d_dummy is not None:
         mean2d = mean2d + mean2d_dummy

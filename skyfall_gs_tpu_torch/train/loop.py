@@ -128,6 +128,9 @@ class Trainer:
                            for i in range(g.size)]
         self.highres_index = [(k, i) for (k, i) in self.flat_index if k[1] >= 800]
         self.start_iteration = 0
+        # The largest binning overflow of any training step so far, kept on
+        # the device (the logger sees only every log_every-th step).
+        self.max_overflow = torch.zeros((), dtype=torch.int64, device=self.device)
 
     # ------------------------------------------------------------------
     def init_state(self, start_checkpoint: Optional[str] = None) -> TrainState:
@@ -251,6 +254,8 @@ class Trainer:
             state, metrics = self._get_step_fn(use_depth)(
                 state, cam, image, mask, depth, self.bg, xyz_sched(iteration),
                 lambda_opacity, generator=self.generator)
+            if metrics.overflow is not None:
+                self.max_overflow = torch.maximum(self.max_overflow, metrics.overflow)
 
             # ---- densification ------------------------------------------
             if iteration < o.densify_until_iter:

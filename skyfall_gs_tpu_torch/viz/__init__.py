@@ -1,1 +1,2 @@
-"""Visualization helpers (port of skyfall_gs_tpu.viz): depth colorization."""
+"""Visualization (port of skyfall_gs_tpu.viz): depth colorization,
+trajectories and trajectory video."""
