@@ -5,13 +5,18 @@
 
 Phases, one line each:
   0. the card (nvidia-smi name and power limit), torch/CUDA and nvcc versions;
-  1. build the compositing kernels from csrc/ with nvcc into build/;
+  1. build the compositing kernels from csrc/ with nvcc into build/, with
+     ptxas's registers, shared memory and spills per kernel;
   2. each kernel against its plain PyTorch version at 128x128 on a scene
-     with a saturated tile and tiles of more than 1k entries;
+     with a saturated tile and tiles of more than 1k entries: the forward
+     exactly, the per-gaussian gradients per column, and an exactly zero
+     gradient row for every splat wholly past its tiles' termination;
   3. the main path: Stage-1 training steps at the bench workload (512x512,
      100k splats, capacity 125k, SH degree 3, filter_3d 0.3, depth loss on,
      8 orbit cameras), with both kernels' launch counts, then each kernel
-     timed alone against its plain version at that shape;
+     timed alone against its plain version at that shape (the backward with
+     its accumulation into the gradient table), beside its bound: the work
+     ``composite_work`` counts, over the H100's fp32 and HBM peaks;
   4. one training step's loss and gradients on the card against the same
      step on the CPU (plain versions) on a small scene;
   5. the Stage-1 Trainer on the card, run as the JAX package's quality gate
@@ -29,12 +34,13 @@ Phases, one line each:
   6. the command-line chain at the bench width: ``write_satellite_scene``
      writes a 512 px satellite scene (16 views, 2 held out, 40,000 GT
      points, an init cloud of 13,333, seed 0) to disk, ``cli.train`` trains
-     it from disk (1500 iterations, densify every 150 in (300, 1200)),
-     ``gen_render_path`` writes a 60-frame 1920x1080 orbit, ``render_video``
-     renders it from the checkpoint (RGB) and from the fused PLY (depth),
-     and ``create_fused_ply`` writes the fused PLY and a ``.splat``.  It
-     fails on a missing artifact, a non-finite loss or parameter, any
-     overflow, an unlaunched kernel or a test PSNR under PSNR_FLOOR_DB;
+     it from disk (1500 iterations, densify every 150 in (300, 1200)) for
+     seeds 0, 1 and 2, ``gen_render_path`` writes a 60-frame 1920x1080
+     orbit, ``render_video`` renders it from the median seed's checkpoint
+     (RGB) and from its fused PLY (depth), and ``create_fused_ply`` writes
+     the fused PLY and a ``.splat``.  It fails on a missing artifact, a
+     non-finite loss or parameter, any overflow, an unlaunched kernel or a
+     median test PSNR under PSNR_FLOOR_DB;
   7. inference at full width: the 125k-splat stress scene of
      scripts/bench_entry_budget.py over 4 orbit cameras at 1920x1088, FPS
      over 30 frames after 3 warm-up frames, full (measured capacity) and
@@ -42,12 +48,14 @@ Phases, one line each:
      render, kept entries <= budget), each 1080p configuration profiled
      (device-busy time, launches and the CUDA runtime's host time per
      frame), the full render at 512x512, and the forward kernel against
-     its plain version on one 1920x1088 frame under the 1M budget.
+     its plain version on one 1920x1088 frame under the 1M budget, timed
+     there beside its bound.
 Each measurement line carries the card's name and power limit.  The last
-two lines before the final one are the kernels' JSON record (launches
-counted over phases 3, 5, 6 and 7) and the card's name and power limit;
-the final line is the JSON result.  Any failure raises, and the script
-exits non-zero without a result.  There is no CPU path.
+three lines before the final one are a summary of the kernels at the bench
+shape (time, bound, share of it, plain version, launches, ptxas), their
+JSON record (launches counted over phases 3, 5, 6 and 7) and the card's
+name and power limit; the final line is the JSON result.  Any failure
+raises, and the script exits non-zero without a result.  There is no CPU path.
 """
 
 from __future__ import annotations
@@ -85,9 +93,13 @@ TRAIN_ITERS = 1500
 TRAIN_FLAGS = ["--eval", "--iterations", str(TRAIN_ITERS), "--densify_from_iter", "300",
                "--densification_interval", "150", "--densify_until_iter", "1200"]
 # The JAX package's cli.train on the CPU, on the same 512 px scene (written by
-# write_satellite_scene) with the same flags and seed, reached a test PSNR of
-# 28.39 dB (30,321 splats); the floor is that minus 1 dB.
+# write_satellite_scene) with the same flags and seed 0, reached a test PSNR of
+# 28.39 dB (30,321 splats); the floor is that minus 1 dB.  The port's result
+# for one seed varies from run to run by more than that (densify decisions
+# follow gradient sums whose float order differs between runs), so the floor
+# holds the median of three seeds, as phase 5 does.
 PSNR_FLOOR_DB = 27.39
+SAT_SEEDS = (0, 1, 2)
 PATH_FLAGS = ["--width", "1920", "--height", "1080", "--num_frame", "60",
               "--elevation", "45", "--radius", "300", "--fov", "60"]
 
@@ -179,26 +191,133 @@ def screen_scene(rng, size: int = 128):
 
 
 def kernels_vs_plain(torch, rt, inputs, dout, dtfin):
-    """Kernel and plain version on the same card inputs: errors and rows."""
+    """Kernel and plain version on the same card inputs: the forward's max
+    abs error, and the per-gaussian gradients' errors per column (norm
+    relative, and max error over the column's max)."""
     table, binned, offx, offy, tiles_x = inputs
     args = (table, binned.gather_idx, binned.tile_start, binned.tile_count,
             offx, offy)
     out_k, tf_k = rt.composite_fwd(*args, tiles_x)
     out_p, tf_p = rt.composite_fwd_torch(*args, tiles_x)
-    rows_k = rt.composite_bwd(*args, out_p, tf_p, dout, dtfin, tiles_x)
-    rows_p = rt.composite_bwd_torch(*args, out_p, tf_p, dout, dtfin, tiles_x)
+    g_k = rt.composite_bwd(*args, out_p, tf_p, dout, dtfin, tiles_x)
+    g_p = rt.composite_bwd_torch(*args, out_p, tf_p, dout, dtfin, tiles_x)
     torch.cuda.synchronize()
     fwd_err = max(float((out_k - out_p).abs().max()), float((tf_k - tf_p).abs().max()))
-    col_max = rows_p.abs().amax(0)
-    row_rel = float(((rows_k - rows_p).abs().amax(0) / col_max.clamp_min(1e-30)).max())
-    gi = binned.gather_idx
-    g_k = torch.zeros_like(table).index_add_(0, gi, rows_k)[:-1]
-    g_p = torch.zeros_like(table).index_add_(0, gi, rows_p)[:-1]
+    err = (g_k - g_p).abs().amax(0)
+    # A column the plain version leaves zero (the pad, column 7) must be
+    # exactly zero from the kernel too: its ratio is then 0 or huge.
+    colmax = float((err / g_p.abs().amax(0).clamp_min(1e-30)).max())
     cols = [c for c in range(g_p.shape[1]) if float(g_p[:, c].norm()) > 0]
     g_rel = max(rel_norm(g_k[:, c], g_p[:, c]) for c in cols)
-    return {"fwd_max_abs": fwd_err, "rows_max_abs": float((rows_k - rows_p).abs().max()),
-            "rows_rel_colmax": row_rel, "grad_rel_norm": g_rel,
-            "tf": tf_p, "rows": rows_k, "rows_plain": rows_p}
+    return {"fwd_max_abs": fwd_err, "grad_max_abs": float(err.max()),
+            "grad_rel_colmax": colmax, "grad_rel_norm": g_rel, "tf": tf_p, "grad": g_k}
+
+
+def splats_past_termination(torch, binned, tile_walked, n: int):
+    """Splats all of whose entries lie past their tile's termination (every
+    pixel of the tile stopped before them), as a bool mask over the n
+    splats."""
+    cnt = int(binned.num_entries)
+    counts = binned.tile_count.long()
+    tile = torch.repeat_interleave(torch.arange(len(counts), device=counts.device), counts)
+    rank = torch.arange(cnt, device=counts.device) - binned.tile_start.long()[tile]
+    before = (rank < tile_walked[tile]).long()
+    g = binned.gather_idx[:cnt]
+    n_before = torch.zeros(n + 1, dtype=torch.long, device=g.device).index_add_(0, g, before)
+    n_all = torch.zeros(n + 1, dtype=torch.long, device=g.device).index_add_(
+        0, g, torch.ones_like(before))
+    return ((n_before == 0) & (n_all > 0))[:n]
+
+
+# Published peaks of one H100 SXM: float32 outside the tensor cores, HBM3.
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# Least arithmetic per (entry, pixel) pair walked before the pixel stops in
+# a warp strip the strip mask keeps (dx, dy, power, the alpha test; a culled
+# strip evaluates no pair) and per passing pair (exp, alpha, T and the blend
+# in the forward; the forward recomputed, the dot product, dpower and the 15
+# per-pixel terms and their sums in the backward).
+FLOPS_PER_PAIR = 11
+FWD_FLOPS_PER_PASSING = 18
+BWD_FLOPS_PER_PASSING = 72
+# The previous design of the two kernels (one row-buffer per entry, summed by
+# index_add_ outside the backward), on an H100 80GB HBM3 at 700 W at the
+# bench shape: kernel ms ranges over eight calls, and index_add_ per step.
+PREVIOUS_DESIGN_MS = {"fwd": (0.146, 0.151), "bwd": (0.658, 0.668), "index_add": 0.26}
+
+
+def kernel_bounds(work: dict, n_rows: int, t_total: int) -> dict:
+    """Each kernel's least time on the card for these inputs: the larger of
+    its arithmetic over the fp32 peak and its bytes (each input read once,
+    each output written once) over the memory rate."""
+    pix = t_total * 256 * 4
+    common = n_rows * 64 + work["walked"] * 8 + t_total * 8 + 2 * pix  # rows, indices, ranges, offsets
+    pairs = FLOPS_PER_PAIR * work["kept_pairs"]
+    need = {"fwd": (pairs + FWD_FLOPS_PER_PASSING * work["passing"], common + 8 * pix),
+            "bwd": (pairs + BWD_FLOPS_PER_PASSING * work["passing"],
+                    common + 16 * pix + n_rows * 64)}
+    res = {}
+    for k, (ops, nbytes) in need.items():
+        t_ops, t_bytes = ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        res[k] = {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+                  "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return res
+
+
+def work_summary(w: dict) -> str:
+    return (f"entries {w['entries']}, walked {w['walked']}, pixel pairs {w['pairs']} "
+            f"(in kept strips {w['kept_pairs']}), passing {w['passing']}, warp-slots walked {w['warp_slots']} / culled "
+            f"{w['culled']} / live {w['live']}")
+
+
+def ptxas_report(log_text: str) -> dict:
+    """Registers, shared memory and spills per kernel from ptxas -v."""
+    rep, cur = {}, None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            cur = "fwd" if "fwd_kernel" in ln else "bwd" if "bwd_kernel" in ln else None
+        elif cur and "spill" in ln:
+            rep[cur] = ln.strip()
+        elif cur and "Used" in ln:
+            rep[cur] = ln.split("Used ")[-1].strip() + "; " + rep.get(cur, "")
+    return rep
+
+
+def bench_scene(rng, dev, n: int, img: int):
+    """Phase 3's disk scene of ``n`` splats and its 8 orbit cameras of
+    ``img`` x ``img`` pixels."""
+    from skyfall_gs_tpu_torch.core.camera import orbit_cameras
+    from skyfall_gs_tpu_torch.model.gaussians import create_from_points
+
+    r = 256 * np.sqrt(rng.uniform(0, 1, n))
+    th = rng.uniform(0, 2 * np.pi, n)
+    pts = np.stack([r * np.cos(th), r * np.sin(th), rng.uniform(0, 40, n)], 1).astype(np.float32)
+    cols = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    state = create_from_points(pts, cols, capacity=int(n * 1.25), device=dev)
+    state.active_sh_degree = 3
+    state.aux.filter_3d.fill_(0.3)
+    cams = orbit_cameras([0, 0, 0], 50.0, 500.0, num_cams=8, width=img, height=img,
+                         fov_deg=60.0, uid_base=0, device=dev)
+    return state, cams
+
+
+def bench_inputs(torch, rt, model, cam, cap: int):
+    """The kernels' inputs for one bench view: (table, binned, offx, offy)."""
+    from skyfall_gs_tpu_torch.model.gaussians import (
+        opacity_with_3d_filter, scaling_with_3d_filter)
+    from skyfall_gs_tpu_torch.model.render import compute_colors
+    from skyfall_gs_tpu_torch.ops.projection import project_gaussians
+
+    with torch.no_grad():
+        proj = project_gaussians(
+            model.params.xyz, scaling_with_3d_filter(model.params, model.aux.filter_3d),
+            model.params.rotation, opacity_with_3d_filter(model.params, model.aux.filter_3d),
+            cam, kernel_size=0.1, mask=model.aux.alive)
+        chans = torch.cat([compute_colors(model, cam), proj.depth[:, None],
+                           torch.zeros_like(model.params.xyz)], 1)
+        return rt.composite_inputs(proj.mean2d, proj.conic, proj.depth, proj.radius,
+                                   proj.opacity, chans, cam.height, cam.width, cap=cap,
+                                   radius_xy=proj.radius_xy)
 
 
 # ----------------------------------------------------------------------------
@@ -320,7 +439,7 @@ def cli_phase(torch, rt, dev, card: str, tmp: Path) -> dict:
     from skyfall_gs_tpu_torch.model.gaussians import flat_fields
     from skyfall_gs_tpu_torch.ops.ssim import ssim
 
-    scene_dir, model = tmp / "scene", tmp / "model"
+    scene_dir = tmp / "scene"
     t_phase = time.perf_counter()
     reset_launches(rt)
     n_init = write_satellite_scene(str(scene_dir), device=dev, **SAT_SCENE)
@@ -333,37 +452,45 @@ def cli_phase(torch, rt, dev, card: str, tmp: Path) -> dict:
     assert len(scene.points) == n_init and n_views == (14, 2), (len(scene.points), n_views)
     del scene
 
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    trainer, state = train_cli.main(
-        ["-s", str(scene_dir), "-m", str(model), *TRAIN_FLAGS, "--device", DEVICE,
-         "--test_iterations", str(TRAIN_ITERS), "--save_iterations", str(TRAIN_ITERS),
-         "--checkpoint_iterations", str(TRAIN_ITERS), "--quiet"])
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t0
-    peak_train = torch.cuda.max_memory_allocated() / 2**30
-    with open(model / "metrics.jsonl") as f:
-        records = [json.loads(line) for line in f]
-    steps = [r for r in records if r["type"] == "step"]
-    bad = [r["iter"] for r in steps if not np.isfinite([r["loss"], r["psnr"]]).all()]
-    assert steps and not bad, f"non-finite loss at iterations {bad[:5]}"
-    for k, v in flat_fields(state.model.params):
-        assert bool(torch.isfinite(v).all()), f"non-finite parameter {k}"
-    max_overflow = int(trainer.max_overflow)
-    assert max_overflow == 0, f"binning overflow {max_overflow} in training"
-    psnr = [r["psnr"] for r in records if r["type"] == "eval" and r["split"] == "test"][-1]
-    with torch.no_grad():
-        ssims = [float(ssim(torch.clamp(trainer._eval_render(state.model, v.camera,
-                                                              trainer.bg).color, 0, 1)
-                            .permute(2, 0, 1),
-                            torch.tensor(v.image, device=dev).permute(2, 0, 1)))
-                 for v in trainer.scene.test_views]
-    it_s = TRAIN_ITERS / steps[-1]["elapsed"]
-    n_splats = int(state.model.num_alive)
+    runs = []
+    for seed in SAT_SEEDS:
+        model = tmp / f"model{seed}"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, state = train_cli.main(
+            ["-s", str(scene_dir), "-m", str(model), *TRAIN_FLAGS, "--device", DEVICE,
+             "--seed", str(seed), "--test_iterations", str(TRAIN_ITERS), "--save_iterations",
+             str(TRAIN_ITERS), "--checkpoint_iterations", str(TRAIN_ITERS), "--quiet"])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        with open(model / "metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        steps = [r for r in records if r["type"] == "step"]
+        bad = [r["iter"] for r in steps if not np.isfinite([r["loss"], r["psnr"]]).all()]
+        assert steps and not bad, f"seed {seed}: non-finite loss at iterations {bad[:5]}"
+        for k, v in flat_fields(state.model.params):
+            assert bool(torch.isfinite(v).all()), f"seed {seed}: non-finite parameter {k}"
+        max_overflow = int(trainer.max_overflow)
+        assert max_overflow == 0, f"seed {seed}: binning overflow {max_overflow} in training"
+        with torch.no_grad():
+            ssims = [float(ssim(torch.clamp(trainer._eval_render(state.model, v.camera,
+                                                                  trainer.bg).color, 0, 1)
+                                .permute(2, 0, 1),
+                                torch.tensor(v.image, device=dev).permute(2, 0, 1)))
+                     for v in trainer.scene.test_views]
+        runs.append({
+            "seed": seed, "model": model, "wall": t_train, "ssim": float(np.mean(ssims)),
+            "psnr": [r["psnr"] for r in records
+                     if r["type"] == "eval" and r["split"] == "test"][-1],
+            "it_s": TRAIN_ITERS / steps[-1]["elapsed"], "n_splats": int(state.model.num_alive),
+            "peak": torch.cuda.max_memory_allocated() / 2**30})
+        del trainer, state
+        torch.cuda.empty_cache()
     train_launches = launches_of(rt)
-    del trainer, state
-    torch.cuda.empty_cache()
+    med = sorted(runs, key=lambda r: r["psnr"])[len(runs) // 2]
 
+    # The rest of the chain from the median seed's checkpoint.
+    model = med["model"]
     path = gen_render_path.main(["--output_folder", str(tmp / "paths"), *PATH_FLAGS])
     path_kw = dict(zip(PATH_FLAGS[::2], PATH_FLAGS[1::2]))
     ckpt = model / f"chkpnt{TRAIN_ITERS}.npz"
@@ -390,19 +517,26 @@ def cli_phase(torch, rt, dev, card: str, tmp: Path) -> dict:
         assert p.exists() and (p.is_dir() and any(p.iterdir()) or p.stat().st_size > 0), \
             f"missing artifact {name}: {p}"
     assert launches["fwd"] > train_launches["fwd"] > 0 and train_launches["bwd"] > 0, launches
+    for r in runs:
+        log(6, f"cli.train seed {r['seed']} on [{card}]: {TRAIN_ITERS} it in {r['wall']:.2f} s "
+               f"wall ({r['it_s']:.2f} it/s over the loop), test PSNR {r['psnr']:.3f} dB, SSIM "
+               f"{r['ssim']:.4f}, final splats {r['n_splats']}, max overflow 0, peak memory "
+               f"{r['peak']:.3f} GiB")
     log(6, f"CLI chain on [{card}]: wrote the {SAT_SCENE['size']} px satellite scene in "
            f"{t_write:.2f} s; load_scene {t_load:.3f} s, views {n_views[0]} train / "
-           f"{n_views[1]} test, init points {n_init}; cli.train {TRAIN_ITERS} it in "
-           f"{t_train:.2f} s wall ({it_s:.2f} it/s over the loop), test PSNR {psnr:.3f} dB "
-           f"(floor {PSNR_FLOOR_DB} dB), SSIM {float(np.mean(ssims)):.4f}, final splats "
-           f"{n_splats}, max overflow {max_overflow}, peak memory {peak_train:.3f} GiB; "
+           f"{n_views[1]} test, init points {n_init}; cli.train seeds "
+           f"{', '.join(str(r['seed']) for r in runs)}: median seed {med['seed']} test PSNR "
+           f"{med['psnr']:.3f} dB (floor {PSNR_FLOOR_DB} dB; per-seed "
+           f"{[round(r['psnr'], 3) for r in runs]}), SSIM {med['ssim']:.4f}, final splats "
+           f"{med['n_splats']}; from its checkpoint "
            f"{path_kw['--width']}x{path_kw['--height']} x {path_kw['--num_frame']}-frame "
            f"trajectory FPS: checkpoint rgb {fps_ckpt:.2f}, fused PLY "
            f"depth {fps_ply:.2f}, peak memory {peak_render:.3f} GiB; artifacts "
            + ", ".join(f"{k} {mib(p)}" for k, p in artifacts.items())
            + f"; launches fwd {launches['fwd']} bwd {launches['bwd']}; phase 6 took "
              f"{time.perf_counter() - t_phase:.1f} s")
-    assert psnr >= PSNR_FLOOR_DB, f"test PSNR {psnr:.3f} dB under the floor {PSNR_FLOOR_DB}"
+    assert med["psnr"] >= PSNR_FLOOR_DB, \
+        f"median test PSNR {med['psnr']:.3f} dB under the floor {PSNR_FLOOR_DB}"
     return launches
 
 
@@ -495,7 +629,8 @@ def profile_summary(p: dict) -> str:
 
 def stress_phase(torch, rt, dev, card: str) -> tuple[dict, float]:
     """Phase 7; returns the kernels' launch counts and the forward kernel's
-    max abs error against its plain version on a 1080p frame."""
+    max abs error against its plain version on a 1080p frame (with its time
+    and bound there, logged)."""
     from skyfall_gs_tpu_torch.core.camera import orbit_cameras
     from skyfall_gs_tpu_torch.model.gaussians import (
         opacity_with_3d_filter, scaling_with_3d_filter)
@@ -515,6 +650,7 @@ def stress_phase(torch, rt, dev, card: str) -> tuple[dict, float]:
         torch.cuda.reset_peak_memory_stats()
         reset_launches(rt)
         fps_full, full, overflow, mallocs = render_fps(torch, state, cams, bin_capacity=cap)
+        assert launches_of(rt)["fwd"] > 0, launches_of(rt)
         for k, v in launches_of(rt).items():
             launches[k] += v
         assert overflow == 0, f"{w}x{h} full render overflow {overflow}"
@@ -540,6 +676,7 @@ def stress_phase(torch, rt, dev, card: str) -> tuple[dict, float]:
             assert max(kept) <= budget, (budget, kept)
             reset_launches(rt)
             fps, imgs, overflow, mallocs = render_fps(torch, state, cams, entry_budget=budget)
+            assert launches_of(rt)["fwd"] > 0, launches_of(rt)
             for k, v in launches_of(rt).items():
                 launches[k] += v
             assert overflow == 0, f"budget {budget}: overflow {overflow}"
@@ -577,12 +714,19 @@ def stress_phase(torch, rt, dev, card: str) -> tuple[dict, float]:
         out_p, tf_p = rt.composite_fwd_torch(*args)
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
+        fwd = lambda: rt.composite_fwd(*args)                           # noqa: E731
+        fwd()
+        t_fwd = min(cuda_ms(fwd, 20, torch), cuda_ms(fwd, 20, torch))
+        work = rt.composite_work(*args)
+    bound = kernel_bounds(work, table.shape[0], binned.tile_start.shape[0])["fwd"]
     err = max(float((out_k - out_p).abs().max()), float((tf_k - tf_p).abs().max()))
     assert int(binned.overflow) == 0 and int(binned.num_entries) <= 1_000_000
     log(7, f"forward kernel vs plain on one 1920x1088 frame under entry_budget 1000000 "
            f"({int(binned.num_entries)} entries, max tile {int(binned.tile_count.max())}) on "
-           f"[{card}]: max abs {err:.3e} (tol 1e-4), plain version {t_plain:.2f} s; phase 7 "
-           f"took {time.perf_counter() - t_phase:.1f} s")
+           f"[{card}]: max abs {err:.3e} (tol 1e-4), kernel {t_fwd:.4f} ms, bound "
+           f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (share {bound['bound_ms'] / t_fwd:.3f}), "
+           f"plain version {t_plain * 1e3:.1f} ms; {work_summary(work)}; phase 7 took "
+           f"{time.perf_counter() - t_phase:.1f} s")
     assert err <= 1e-4, err
     return launches, err
 
@@ -610,12 +754,10 @@ def main() -> int:
     from skyfall_gs_tpu_torch.config import OptimizationConfig
     from skyfall_gs_tpu_torch.core.camera import orbit_cameras
     from skyfall_gs_tpu_torch.model.gaussians import (
-        create_from_points, flat_fields, opacity_with_3d_filter, scaling_with_3d_filter,
-        state_from_numpy, state_to_numpy)
-    from skyfall_gs_tpu_torch.model.render import compute_colors, measure_bin_capacity
+        create_from_points, flat_fields, state_from_numpy, state_to_numpy)
+    from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
     from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.ops.binning import num_tiles
-    from skyfall_gs_tpu_torch.ops.projection import project_gaussians
     from skyfall_gs_tpu_torch.train.step import (
         _build_grads_fn, init_train_state, make_train_step)
 
@@ -633,9 +775,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = rt.build_library()
     rt._library()
-    ptxas = " | ".join(ln.split("ptxas info    : ")[-1] for ln in
-                       lib.with_suffix(".log").read_text().splitlines() if "Used" in ln)
-    log(1, f"built {lib.name} in {time.perf_counter() - t0:.1f} s; ptxas: {ptxas}")
+    ptxas = ptxas_report(lib.with_suffix(".log").read_text())
+    assert set(ptxas) == {"fwd", "bwd"}, ptxas
+    log(1, f"built {lib.name} in {time.perf_counter() - t0:.1f} s; ptxas: fwd_kernel "
+           f"{ptxas['fwd']} | bwd_kernel {ptxas['bwd']}")
 
     # -- phase 2: kernels vs plain at 128x128 ---------------------------------
     rng = np.random.default_rng(0)
@@ -656,40 +799,28 @@ def main() -> int:
     assert int(binned.overflow) == 0, "phase 2 scene overflowed its capacity"
     assert counts.max() > 1000, f"no tile with more than 1k entries: {counts.max()}"
     assert len(saturated) > 0, "no saturated tile in the phase 2 scene"
-    # Entries behind the last one the plain version composites in a
-    # saturated tile: the kernel's early exit must leave them exactly zero.
-    tails = []
-    for t in saturated:
-        s0, cnt = int(binned.tile_start[t]), int(counts[t])
-        live = torch.nonzero(res["rows_plain"][s0:s0 + cnt].abs().sum(1))
-        tails.append((cnt - (int(live.max()) + 1 if len(live) else 0), s0, cnt))
-    n_tail, s0, cnt = max(tails)
-    assert n_tail >= 64, f"saturated tiles have no tail past termination: {n_tail}"
-    assert bool((res["rows"][s0 + cnt - n_tail:s0 + cnt] == 0).all()), \
-        "post-termination entries got gradient rows"
+    # Splats all of whose entries lie past their tile's termination: the
+    # kernel's early exit must leave their gradient rows exactly zero.
+    work = rt.composite_work(table, binned.gather_idx, binned.tile_start, binned.tile_count,
+                             offx, offy, tiles_x)
+    past = splats_past_termination(torch, binned, work["tile_walked"], len(mean2d))
+    n_past = int(past.sum())
+    assert n_past >= 32, f"too few splats past termination: {n_past}"
+    assert bool((res["grad"][:-1][past] == 0).all()), "splats past termination got gradients"
     log(2, f"128x128, {len(mean2d)} splats, {int(binned.num_entries)} entries, "
-           f"max tile {counts.max()}, saturated tiles {len(saturated)} (longest tail "
-           f"past termination {n_tail} entries, all-zero rows): "
-           f"fwd max abs {res['fwd_max_abs']:.3e} (tol 1e-4), rows max err / col max "
-           f"{res['rows_rel_colmax']:.3e} (tol 1e-4), per-gaussian grads rel norm "
+           f"max tile {counts.max()}, saturated tiles {len(saturated)}, {n_past} splats "
+           f"wholly past termination (all-zero gradient rows); {work_summary(work)}: "
+           f"fwd max abs {res['fwd_max_abs']:.3e} (tol 1e-4), per-gaussian grads max err / "
+           f"col max {res['grad_rel_colmax']:.3e} (tol 1e-4), rel norm per column "
            f"{res['grad_rel_norm']:.3e} (tol 1e-4)")
     assert res["fwd_max_abs"] <= 1e-4, res["fwd_max_abs"]
-    assert res["rows_rel_colmax"] <= 1e-4, res["rows_rel_colmax"]
+    assert res["grad_rel_colmax"] <= 1e-4, res["grad_rel_colmax"]
     assert res["grad_rel_norm"] <= 1e-4, res["grad_rel_norm"]
 
     # -- phase 3: the main path at the bench workload --------------------------
     rng = np.random.default_rng(0)
-    r = 256 * np.sqrt(rng.uniform(0, 1, N_GAUSSIANS))
-    th = rng.uniform(0, 2 * np.pi, N_GAUSSIANS)
-    pts = np.stack([r * np.cos(th), r * np.sin(th),
-                    rng.uniform(0, 40, N_GAUSSIANS)], 1).astype(np.float32)
-    cols = rng.uniform(0, 1, (N_GAUSSIANS, 3)).astype(np.float32)
-    state = create_from_points(pts, cols, capacity=int(N_GAUSSIANS * 1.25), device=dev)
-    state.active_sh_degree = 3
-    state.aux.filter_3d.fill_(0.3)
+    state, cams = bench_scene(rng, dev, N_GAUSSIANS, IMG)
     ts = init_train_state(state)
-    cams = orbit_cameras([0, 0, 0], 50.0, 500.0, num_cams=8, width=IMG, height=IMG,
-                         fov_deg=60.0, uid_base=0, device=dev)
     gt = torch.from_numpy(rng.uniform(0, 1, (IMG, IMG, 3)).astype(np.float32)).to(dev)
     mask = torch.ones((IMG, IMG), device=dev)
     gt_depth = torch.from_numpy(rng.uniform(1, 500, (IMG, IMG)).astype(np.float32)).to(dev)
@@ -735,24 +866,15 @@ def main() -> int:
            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # Each kernel alone against its plain version at the bench shape.
-    with torch.no_grad():
-        model, cam = ts.model, cams[0]
-        proj = project_gaussians(
-            model.params.xyz, scaling_with_3d_filter(model.params, model.aux.filter_3d),
-            model.params.rotation, opacity_with_3d_filter(model.params, model.aux.filter_3d),
-            cam, kernel_size=0.1, mask=model.aux.alive)
-        chans = torch.cat([compute_colors(model, cam), proj.depth[:, None],
-                           torch.zeros_like(model.params.xyz)], 1)
-        table, binned, offx, offy = rt.composite_inputs(
-            proj.mean2d, proj.conic, proj.depth, proj.radius, proj.opacity, chans,
-            IMG, IMG, cap=cap, radius_xy=proj.radius_xy)
+    table, binned, offx, offy = bench_inputs(torch, rt, ts.model, cams[0], cap)
     tiles_x = num_tiles(IMG, IMG)[1]
     t_total = binned.tile_start.shape[0]
     dout = torch.randn((t_total, rt.NCH, rt.P), device=dev, generator=gen) * 1e-3
     dtfin = torch.randn((t_total, rt.P), device=dev, generator=gen) * 1e-3
     bench = kernels_vs_plain(torch, rt, (table, binned, offx, offy, tiles_x), dout, dtfin)
     assert bench["fwd_max_abs"] <= 1e-4, bench["fwd_max_abs"]
-    assert bench["rows_rel_colmax"] <= 1e-4, bench["rows_rel_colmax"]
+    assert bench["grad_rel_colmax"] <= 1e-4, bench["grad_rel_colmax"]
+    assert bench["grad_rel_norm"] <= 1e-4, bench["grad_rel_norm"]
     args = (table, binned.gather_idx, binned.tile_start, binned.tile_count, offx, offy)
     out, tf = rt.composite_fwd(*args, tiles_x)
     fwd = lambda: rt.composite_fwd(*args, tiles_x)                       # noqa: E731
@@ -766,13 +888,25 @@ def main() -> int:
         fn()
         times[key] = cuda_ms(fn, reps, torch)
     ms = {k: min(times[k], times[k + "2"]) for k in ("fwd", "bwd", "fwd_plain", "bwd_plain")}
-    n_entries = int(binned.num_entries)
-    log(3, f"kernels alone at {IMG}px ({n_entries} entries, max tile "
-           f"{int(binned.tile_count.max())}) on [{card}]: fwd {ms['fwd']:.4f} ms vs plain "
+    work = rt.composite_work(*args, tiles_x)
+    bound = kernel_bounds(work, table.shape[0], t_total)
+    prev = PREVIOUS_DESIGN_MS
+    log(3, f"kernels alone at {IMG}px ({int(binned.num_entries)} entries, max tile "
+           f"{int(binned.tile_count.max())}) on [{card}], the backward with its "
+           f"accumulation into the gradient table: fwd {ms['fwd']:.4f} ms vs plain "
            f"{ms['fwd_plain']:.2f} ms, bwd {ms['bwd']:.4f} ms vs plain "
-           f"{ms['bwd_plain']:.2f} ms; fwd max abs {bench['fwd_max_abs']:.3e}, rows max err "
-           f"/ col max {bench['rows_rel_colmax']:.3e}, per-gaussian grads rel norm "
+           f"{ms['bwd_plain']:.2f} ms (previous design: fwd {prev['fwd'][0]}-{prev['fwd'][1]} "
+           f"ms, bwd {prev['bwd'][0]}-{prev['bwd'][1]} ms + index_add_ {prev['index_add']} "
+           f"ms); fwd max abs {bench['fwd_max_abs']:.3e}, per-gaussian grads max err / col "
+           f"max {bench['grad_rel_colmax']:.3e}, rel norm per column "
            f"{bench['grad_rel_norm']:.3e}")
+    log(3, f"work at {IMG}px: {work_summary(work)}; bounds: fwd {bound['fwd']['bound_ms']:.4f} "
+           f"ms ({bound['fwd']['ops'] / 1e9:.3f} GFLOP, {bound['fwd']['bytes'] / 1e6:.1f} MB, "
+           f"by {bound['fwd']['bound_by']}), bwd {bound['bwd']['bound_ms']:.4f} ms "
+           f"({bound['bwd']['ops'] / 1e9:.3f} GFLOP, {bound['bwd']['bytes'] / 1e6:.1f} MB, "
+           f"by {bound['bwd']['bound_by']}); share of bound fwd "
+           f"{bound['fwd']['bound_ms'] / ms['fwd']:.3f}, bwd "
+           f"{bound['bwd']['bound_ms'] / ms['bwd']:.3f}")
 
     # -- phase 4: one step on the card against the CPU on a small scene --------
     rng = np.random.default_rng(1)
@@ -825,17 +959,24 @@ def main() -> int:
     for k, n in counts.items():
         launches[k] += n
 
+    # No single PyTorch call composites depth-sorted splats: library_ms null.
     kernels = [
         {"name": "composite_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "skyfall_gs_tpu/ops/rasterize_tiled.py:506",
          "launches": launches["fwd"],
          "max_abs_err": max(bench["fwd_max_abs"], fwd_err_1080p),
-         "ms": ms["fwd"], "plain_ms": ms["fwd_plain"]},
+         "ms": ms["fwd"], "plain_ms": ms["fwd_plain"], "bound_ms": bound["fwd"]["bound_ms"],
+         "bound_by": bound["fwd"]["bound_by"], "library_ms": None},
         {"name": "composite_bwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "skyfall_gs_tpu/ops/rasterize_tiled.py:544",
-         "launches": launches["bwd"], "max_abs_err": bench["rows_max_abs"],
-         "ms": ms["bwd"], "plain_ms": ms["bwd_plain"]},
+         "launches": launches["bwd"], "max_abs_err": bench["grad_max_abs"],
+         "ms": ms["bwd"], "plain_ms": ms["bwd_plain"], "bound_ms": bound["bwd"]["bound_ms"],
+         "bound_by": bound["bwd"]["bound_by"], "library_ms": None},
     ]
+    print("kernels at the bench shape on [" + card + "]: " + "; ".join(
+        f"{k['name']} {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
+        f"(share {k['bound_ms'] / k['ms']:.3f}), plain {k['plain_ms']:.1f} ms, launches "
+        f"{k['launches']}, ptxas {ptxas[k['name'][-3:]]}" for k in kernels), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

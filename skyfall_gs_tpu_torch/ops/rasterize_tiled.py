@@ -7,8 +7,9 @@ depth-sorted run:
   * forward  — front-to-back blend of 7 channels and the final
     transmittance (``csrc/composite.cu::fwd_kernel``, replacing the Pallas
     ``_fwd_kernel``);
-  * backward — recomputes the forward per entry and forms every entry's
-    gradient row with the suffix trick, including the two AbsGS rows
+  * backward — recomputes the forward per entry, forms every entry's
+    gradient row with the suffix trick, including the two AbsGS rows, and
+    adds it into its gaussian's row of the gradient table
     (``csrc/composite.cu::bwd_kernel``, replacing ``_bwd_kernel``).
 
 Each kernel has a plain PyTorch version here (``composite_fwd_torch`` /
@@ -23,10 +24,18 @@ plus a zero dummy row N:
   col  7      zero pad (rows are four 16-byte vectors)
   cols 8..13  mx, my, conic a, b, c, opacity
   cols 14,15  AbsGS dummies (zeros in; backward emits sum|dmx|, sum|dmy|)
-The backward writes one (16,) gradient row per entry, in sorted entry order,
-into a zero-initialized (cap, 16) buffer; ``index_add_`` over
-``gather_idx`` then sums them per gaussian (the transpose of the gather).
+The backward returns the gradient of that table, (N+1, 16): every entry's
+(16,) gradient row summed into its gaussian's row (the transpose of the
+gather).  The kernel adds them with atomics, so the sums come out in an
+order that differs from run to run; the plain version forms the rows per
+entry and sums them with one ``index_add_`` over ``gather_idx``.
 Outputs are tile-major: ``out`` (T, 7, 256), ``T_final`` (T, 256).
+
+Both kernels skip, per warp of 32 pixels (a 16x2 strip of the tile), the
+entries whose alpha >= 1/255 ellipse cannot reach the strip
+(``strip_mask_torch`` is the plain transcription of the CUDA predicate).
+``composite_work`` counts the work these inputs need, for the kernels'
+bounds; nothing on the main path calls it.
 
 Compositing rules (shared with rasterize_ref): pixel centers are integer
 coordinates plus the subpixel offset; ``power = -0.5 (a dx^2 + c dy^2) -
@@ -197,8 +206,9 @@ def composite_fwd_torch(table, gather_idx, tile_start, tile_count, offx, offy,
 
 def composite_bwd_torch(table, gather_idx, tile_start, tile_count, offx, offy,
                         out, tfin, dout, dtfin, tiles_x: int):
-    """Plain version of the backward kernel: per-entry gradient rows
-    (cap, 16) in sorted entry order (zero outside the composited runs)."""
+    """Plain version of the backward kernel: the gradient of the (N+1, 16)
+    table, formed as per-entry rows in sorted entry order and summed per
+    gaussian by one ``index_add_``."""
     t_total = tile_start.shape[0]
     px, py = _pixel_centers(t_total, tiles_x, offx, offy)
     dent = torch.zeros((gather_idx.shape[0], NA), dtype=torch.float32,
@@ -239,7 +249,100 @@ def composite_bwd_torch(table, gather_idx, tile_start, tile_count, offx, offy,
         ], dim=1)
         dent[idx[valid]] = rows[valid]
         T = torch.where(keep, t_after, T)
-    return dent
+    return torch.zeros_like(table).index_add_(0, gather_idx, dent)
+
+
+# ----------------------------------------------------------------------------
+# The strip cull and the work count
+# ----------------------------------------------------------------------------
+# Margins of the cull, as in csrc/composite.cu: k' = k (1 + MARGIN_REL +
+# MARGIN_COND a c / det) + MARGIN_ABS, then each half-extent x EXTENT_REL +
+# EXTENT_ABS pixels.
+MARGIN_REL = 1e-4
+MARGIN_COND = 4e-6
+MARGIN_ABS = 1e-5
+EXTENT_REL = 1.001
+EXTENT_ABS = 0.01
+WARPS = P // 32      # warp strips per tile, 16x2 pixels each
+
+
+def strip_bounds_torch(px, py):
+    """Per tile and warp strip: (x min, x max, y min, y max) of the strip's
+    pixel centres, (T, 8, 4); ``csrc/composite.cu::strip_bounds``."""
+    t_total = px.shape[0]
+    x = px.reshape(t_total, WARPS, 32)
+    y = py.reshape(t_total, WARPS, 32)
+    return torch.stack([x.amin(2), x.amax(2), y.amin(2), y.amax(2)], dim=2)
+
+
+def strip_mask_torch(rows, strips):
+    """Plain transcription of ``csrc/composite.cu::strip_mask``: which warp
+    strips the alpha >= 1/255 ellipse of each row can reach.
+
+    ``rows`` (E, 16) table rows, ``strips`` (E, 8, 4) the bounds of each
+    row's tile; returns (E, 8) bool.  The ellipse q(dx, dy) <= k with
+    k = 2 ln(255 op) has half-extents sqrt(k c / det), sqrt(k a / det);
+    op < 1/255 reaches no strip, a conic that is not positive definite or
+    not finite reaches every strip.
+    """
+    mx, my, a, b, c, op = (rows[:, k] for k in range(8, 14))
+    det = (a.double() * c.double() - b.double() * b.double()).float()
+    k = torch.clamp_min(2.0 * torch.log(255.0 * op), 0.0)
+    km = k * (1.0 + MARGIN_REL + MARGIN_COND * (a * c / det)) + MARGIN_ABS
+    ex = torch.sqrt(km * c / det) * EXTENT_REL + EXTENT_ABS
+    ey = torch.sqrt(km * a / det) * EXTENT_REL + EXTENT_ABS
+    every = ~((a > 0) & (c > 0) & (det > 0) & torch.isfinite(a * c) & torch.isfinite(op)
+              & torch.isfinite(mx) & torch.isfinite(my) & torch.isfinite(ex)
+              & torch.isfinite(ey))
+    mx, my, ex, ey = (v[:, None] for v in (mx, my, ex, ey))
+    reach = ((strips[..., 0] - mx <= ex) & (mx - strips[..., 1] <= ex)
+             & (strips[..., 2] - my <= ey) & (my - strips[..., 3] <= ey))
+    reach = reach | every[:, None]
+    return reach & ~(op < ALPHA_EPS)[:, None]
+
+
+def composite_work(table, gather_idx, tile_start, tile_count, offx, offy,
+                   tiles_x: int) -> dict:
+    """Count the compositing work these inputs need, walking the entries as
+    the plain forward does (a pixel stops at its terminating entry, a tile
+    once every pixel has stopped).
+
+    Returns a dict of ints: ``entries``; ``walked`` entries before each
+    tile's exit; ``pairs``, the (entry, pixel) pairs before each pixel
+    stops; ``kept_pairs``, those of them in warp strips the strip mask
+    keeps (the pairs the kernels evaluate); ``passing``, those that pass
+    power <= 0 and alpha >= 1/255; ``warp_slots``, the walked (entry, warp)
+    slots with a pixel not yet stopped; ``culled``, those the strip mask
+    drops; ``live``, those with a passing pair; and ``tile_walked``, a (T,)
+    tensor of entries walked per tile.
+    """
+    t_total = tile_start.shape[0]
+    px, py = _pixel_centers(t_total, tiles_x, offx, offy)
+    strips = strip_bounds_torch(px, py)
+    T = torch.ones_like(px)
+    done = torch.zeros_like(px, dtype=torch.bool)
+    tile_walked = torch.zeros(t_total, dtype=torch.int64, device=table.device)
+    n = dict.fromkeys(("pairs", "kept_pairs", "passing", "warp_slots", "culled", "live"), 0)
+    n_slots = int(tile_count.max()) if t_total else 0
+    for e in range(n_slots):
+        idx, valid, _, _, _, _, _, _, use, t_after = _entry_slot(
+            table, gather_idx, tile_start, tile_count, e, px, py, T)
+        awake = ~done & valid[:, None]                       # pairs walked at slot e
+        passing = use & awake
+        slots = awake.reshape(t_total, WARPS, 32).any(2)
+        reach = strip_mask_torch(table[gather_idx[idx]], strips)
+        tile_walked += slots.any(1)
+        n["pairs"] += int(awake.sum())
+        n["kept_pairs"] += int((awake.reshape(t_total, WARPS, 32) & reach[..., None]).sum())
+        n["passing"] += int(passing.sum())
+        n["warp_slots"] += int(slots.sum())
+        n["culled"] += int((slots & ~reach).sum())
+        n["live"] += int((slots & passing.reshape(t_total, WARPS, 32).any(2)).sum())
+        stop = passing & (t_after < T_EPS)
+        T = torch.where(passing & ~stop, t_after, T)
+        done = done | stop
+    return {"entries": int(tile_count.sum()), "walked": int(tile_walked.sum()),
+            **n, "tile_walked": tile_walked}
 
 
 # ----------------------------------------------------------------------------
@@ -271,7 +374,7 @@ composite_fwd.launches = 0
 
 def composite_bwd(table, gather_idx, tile_start, tile_count, offx, offy,
                   out, tfin, dout, dtfin, tiles_x: int):
-    """Backward compositing: per-entry gradient rows (cap, 16)."""
+    """Backward compositing: the gradient of the (N+1, 16) table."""
     if not table.is_cuda:
         return composite_bwd_torch(table, gather_idx, tile_start, tile_count,
                                    offx, offy, out, tfin, dout, dtfin, tiles_x)
@@ -280,25 +383,24 @@ def composite_bwd(table, gather_idx, tile_start, tile_count, offx, offy,
     for name, x, shape in (("out", out, (t_total, NCH, P)), ("tfin", tfin, (t_total, P)),
                            ("dout", dout, (t_total, NCH, P)), ("dtfin", dtfin, (t_total, P))):
         _check(name, x, torch.float32, shape, table.device)
-    dent = torch.zeros((gather_idx.shape[0], NA), dtype=torch.float32,
-                       device=table.device)
+    dtable = torch.zeros_like(table)                         # the kernel adds into it
     composite_bwd.launches += 1
     rc = _library().skyfall_composite_bwd(
         table.data_ptr(), gather_idx.data_ptr(), tile_start.data_ptr(),
         tile_count.data_ptr(), offx.data_ptr(), offy.data_ptr(), out.data_ptr(),
-        tfin.data_ptr(), dout.data_ptr(), dtfin.data_ptr(), dent.data_ptr(),
+        tfin.data_ptr(), dout.data_ptr(), dtfin.data_ptr(), dtable.data_ptr(),
         t_total, tiles_x, _stream_ptr(table.device))
     if rc != 0:
         raise RuntimeError(f"skyfall_composite_bwd launch failed: cudaError {rc}")
-    return dent
+    return dtable
 
 
 composite_bwd.launches = 0
 
 
 class _Composite(torch.autograd.Function):
-    """Differentiable composite over the binned entry stream.  The gradient
-    w.r.t. the (N+1, 16) table is the per-entry rows summed per gaussian."""
+    """Differentiable composite over the binned entry stream; the backward
+    returns the gradient of the (N+1, 16) table directly."""
 
     @staticmethod
     def forward(ctx, table, gather_idx, tile_start, tile_count, offx, offy, tiles_x):
@@ -313,10 +415,9 @@ class _Composite(torch.autograd.Function):
     def backward(ctx, dout, dtfin):
         table, gather_idx, tile_start, tile_count, offx, offy, out, tfin = \
             ctx.saved_tensors
-        dent = composite_bwd(table, gather_idx, tile_start, tile_count, offx, offy,
-                             out, tfin, dout.contiguous(), dtfin.contiguous(),
-                             ctx.tiles_x)
-        dtable = torch.zeros_like(table).index_add_(0, gather_idx, dent)
+        dtable = composite_bwd(table, gather_idx, tile_start, tile_count, offx, offy,
+                               out, tfin, dout.contiguous(), dtfin.contiguous(),
+                               ctx.tiles_x)
         return dtable, None, None, None, None, None, None
 
 

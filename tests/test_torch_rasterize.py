@@ -12,8 +12,9 @@ Tolerances:
     same product — the JAX kernel forms T as exp(cumsum(log)) — where the
     repo's 1e-2 applies; such pixels must stay rare (<= 1%);
   * per-gaussian gradients, AbsGS included: 1e-3 norm-relative per field;
-  * composite_bwd_torch against torch autograd through composite_fwd_torch:
-    1e-4 norm-relative per field.
+  * composite_bwd_torch (the per-gaussian gradient of the table) against
+    torch autograd through composite_fwd_torch: 1e-4 norm-relative per
+    column.
 """
 
 import jax
@@ -157,13 +158,14 @@ def test_backward_rows_equal_autograd_through_plain_forward(rng):
     dout = torch.from_numpy(rng.normal(0, 1, tuple(out.shape)).astype(np.float32))
     dtfin = torch.from_numpy(rng.normal(0, 1, tuple(tfin.shape)).astype(np.float32))
     (torch.sum(out * dout) + torch.sum(tfin * dtfin)).backward()
-    rows = rt.composite_bwd_torch(table.detach(), *args, out.detach(), tfin.detach(),
+    grad = rt.composite_bwd_torch(table.detach(), *args, out.detach(), tfin.detach(),
                                   dout, dtfin, 2)
-    summed = torch.zeros_like(table).index_add_(0, binned.gather_idx, rows)
+    assert grad.shape == table.shape
     for c in list(range(7)) + list(range(8, 14)):          # every real attribute
         ref = table.grad[:, c]
-        assert float((summed[:, c] - ref).norm() / ref.norm()) <= 1e-4, c
-    assert (rows[:, 7] == 0).all() and (rows[:, 14:] >= 0).all()
+        assert float((grad[:, c] - ref).norm() / ref.norm()) <= 1e-4, c
+    assert (grad[:, 7] == 0).all() and (grad[:, 14:] >= 0).all()
+    assert (grad[-1] == 0).all()                              # the dummy row
 
 
 def test_multichunk_mixed_sign_gradients():
