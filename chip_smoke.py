@@ -49,11 +49,27 @@ Phases, one line each:
      (device-busy time, launches and the CUDA runtime's host time per
      frame), the full render at 512x512, and the forward kernel against
      its plain version on one 1920x1088 frame under the 1M budget, timed
-     there beside its bound.
+     there beside its bound;
+  8. Stage 2 on phase 6's scene: (8a) ``cli.train`` with pseudo views
+     (``--lambda_pseudo_depth 0.5 --depth_model render``, 1000
+     iterations), then ``--iterative_datasets_update`` from its checkpoint
+     with the identity refiner: the first two jax_v1 episodes at the
+     default view set (192 orbit views at 1024x1024 per episode), 300 of
+     10,000 iterations each with their schedule scaled; it fails on an
+     overflow in any render or step, a non-finite loss or parameter, a
+     mean alpha coverage of the orbit renders under 0.5 or a missing
+     frame, depth, checkpoint or PLY; (8b) FLUX.1-dev (11.9B parameters,
+     bf16) and its VAE (fp32) at full width on random weights, on two of
+     8a's renders: bf16 against fp32 on a depth-cut model, one velocity
+     evaluation timed and profiled, VAE encode / decode, FlowEdit with
+     n_max 2 of 28 steps, and the edit with equal conditions against its
+     input; (8c) MoGe (ViT-L/14 at 518 px) on the refined frames; (8d) one
+     IDU episode with both priors (idu_refine, 2 views at 1024x1024, 100
+     iterations).
 Each measurement line carries the card's name and power limit.  The last
 three lines before the final one are a summary of the kernels at the bench
 shape (time, bound, share of it, plain version, launches, ptxas), their
-JSON record (launches counted over phases 3, 5, 6 and 7) and the card's
+JSON record (launches counted over phases 3, 5, 6, 7, 8a and 8d) and the card's
 name and power limit; the final line is the JSON result.  Any failure
 raises, and the script exits non-zero without a result.  There is no CPU path.
 """
@@ -108,6 +124,34 @@ STRESS_SPLATS = 125_000
 STRESS_WARMUP = 3
 STRESS_FRAMES = 30
 BUDGETS = (2_000_000, 1_000_000, 500_000)
+
+# Phase 8: Stage 2.  8a cuts only depth: a short Stage 1 with pseudo views,
+# then the first IDU_EPISODES jax_v1 episodes at IDU_ITERS iterations each,
+# the episode's schedule (densify window, opacity reset and cooling, tests,
+# xyz LR) scaled from 10,000 iterations; the view set keeps its defaults.
+S1_ITERS = 1000
+S1_FLAGS = {"iterations": S1_ITERS, "densify_from_iter": 300, "densification_interval": 150,
+            "densify_until_iter": 900, "start_sample_pseudo": 100,
+            "end_sample_pseudo": S1_ITERS}
+IDU_EPISODES = 2
+IDU_ITERS = 300
+IDU_FLAGS = {"idu_episode_iterations": IDU_ITERS, "idu_densify_until_iter": 225,
+             "idu_opacity_reset_interval": 150, "idu_opacity_cooling_iterations": 30,
+             "idu_testing_interval": 150, "idu_position_lr_max_steps": IDU_ITERS}
+MIN_ALPHA_COVERAGE = 0.5      # the orbit renders see the scene
+FLUX_BF16_REL = 3e-2          # bf16 against fp32 velocity, depth-cut model
+# An edit with equal conditions keeps its latent exactly: both branches
+# see z_src_t + (z_edit - x_src) = z_src_t bit for bit while the edit is
+# zero, and the velocity is deterministic.  8b also prints what the other
+# order, z_edit + (z_src_t - x_src), gives the two branches: inputs one ulp
+# apart, and the velocity difference 57 random bf16 blocks make of them.
+FLUX_NOOP_REL = 1e-6
+BF16_PEAK = 989e12            # H100 SXM dense bf16 (NVIDIA's data sheet)
+# 8d: the whole chain on 2 orbit views at 1024^2, about 100 iterations.
+CHAIN = dict(idu_refine=True, idu_num_cams=2, idu_num_samples_per_view=1, idu_grid_size=1,
+             idu_flow_edit_n_max=2, idu_episode_iterations=100, idu_densify_until_iter=75,
+             idu_opacity_reset_interval=50, idu_opacity_cooling_iterations=10,
+             idu_testing_interval=100, idu_position_lr_max_steps=100)
 
 
 def log(phase, msg: str) -> None:
@@ -732,6 +776,299 @@ def stress_phase(torch, rt, dev, card: str) -> tuple[dict, float]:
 
 
 # ----------------------------------------------------------------------------
+# Phase 8: Stage 2 on the card
+# ----------------------------------------------------------------------------
+
+def flag_list(d: dict) -> list:
+    return [a for k, v in d.items() for a in (f"--{k}", str(v))]
+
+
+def finite_steps(model: Path, after: int) -> int:
+    """The logged training steps past ``after``; fails on a non-finite loss."""
+    with open(model / "metrics.jsonl") as f:
+        steps = [r for r in map(json.loads, f) if r["type"] == "step" and r["iter"] > after]
+    bad = [r["iter"] for r in steps if not np.isfinite([r["loss"], r["psnr"]]).all()]
+    assert steps and not bad, f"non-finite loss at iterations {bad[:5]}"
+    return len(steps)
+
+
+def cuda_wall_ms(fn, torch, reps: int = 1):
+    """Host wall ms of ``reps`` calls of ``fn`` between two synchronizations
+    (per call), and the last result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps, out
+
+
+def idu_cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, Path]:
+    """Phase 8a: Stage 1 with pseudo views, then the IDU curriculum, both
+    through ``cli.train`` on phase 6's scene; returns the launches and the
+    model directory."""
+    from skyfall_gs_tpu_torch.cli import train as train_cli
+    from skyfall_gs_tpu_torch.config import OptimizationConfig
+    from skyfall_gs_tpu_torch.model.gaussians import flat_fields
+
+    o = OptimizationConfig(**IDU_FLAGS)
+    n_views = o.idu_num_cams * o.idu_num_samples_per_view * o.idu_grid_size ** 2
+    size = o.idu_render_size
+    scene, model = tmp / "scene", tmp / "stage2"
+    common = ["-s", str(scene), "-m", str(model), "--eval", "--device", DEVICE, "--seed", "0",
+              "--quiet", "--lambda_pseudo_depth", "0.5", "--depth_model", "render"]
+    log("8a", f"cuts: Stage 1 {S1_ITERS} iterations (pseudo views every 10 from "
+              f"{S1_FLAGS['start_sample_pseudo']}); Stage 2 the first {IDU_EPISODES} of the 5 "
+              f"jax_v1 episodes at {IDU_ITERS} of 10,000 iterations each, densify until "
+              f"{IDU_FLAGS['idu_densify_until_iter']}, opacity reset every "
+              f"{IDU_FLAGS['idu_opacity_reset_interval']} (cooling "
+              f"{IDU_FLAGS['idu_opacity_cooling_iterations']}), tests every "
+              f"{IDU_FLAGS['idu_testing_interval']}, xyz LR over "
+              f"{IDU_FLAGS['idu_position_lr_max_steps']} steps; idu_render_size {size}, "
+              f"idu_num_cams {o.idu_num_cams}, idu_num_samples_per_view "
+              f"{o.idu_num_samples_per_view} and idu_grid_size {o.idu_grid_size} ({n_views} "
+              "orbit views per episode)")
+    reset_launches(rt)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, state = train_cli.main(common + flag_list(S1_FLAGS) + [
+        "--checkpoint_iterations", str(S1_ITERS), "--test_iterations", str(S1_ITERS),
+        "--save_iterations", str(S1_ITERS)])
+    torch.cuda.synchronize()
+    t_s1, peak_s1 = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    assert int(trainer.max_overflow) == 0, f"Stage 1 overflow {int(trainer.max_overflow)}"
+    s1_launches = launches_of(rt)
+    assert s1_launches["fwd"] > S1_ITERS and s1_launches["bwd"] >= S1_ITERS, s1_launches
+    finite_steps(model, 0)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    orch, state = train_cli.main(common + [
+        "--iterative_datasets_update", "--start_checkpoint", str(model / f"chkpnt{S1_ITERS}.npz"),
+        "--refiner", "identity", "--idu_episodes", str(IDU_EPISODES)] + flag_list(IDU_FLAGS))
+    torch.cuda.synchronize()
+    t_s2, peak_s2 = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    launches = launches_of(rt)
+    n_steps = finite_steps(model, S1_ITERS)
+    for k, v in flat_fields(state.model.params):
+        assert bool(torch.isfinite(v).all()), f"non-finite parameter {k}"
+    assert orch.max_overflow == 0, f"IDU overflow {orch.max_overflow}"
+    assert len(orch.episodes) == IDU_EPISODES, orch.episodes
+    end = S1_ITERS
+    for ep in orch.episodes:
+        end += IDU_ITERS
+        idu_dir = model / "idu" / ep["tag"]
+        pngs = sorted((idu_dir / "render").iterdir())
+        assert ep["views"] == len(pngs) == n_views and ep["size"] == size, (ep, len(pngs))
+        assert (idu_dir / "render_depth.npy").stat().st_size == n_views * size * size * 4 + 128
+        assert (model / f"chkpnt{end}.npz").is_file(), end
+        assert (model / "point_cloud" / f"iteration_{end}" / "point_cloud.ply").is_file(), end
+        assert ep["alpha_coverage"] >= MIN_ALPHA_COVERAGE, ep
+        log("8a", f"IDU episode {ep['tag']} on [{card}]: {ep['views']} orbit views at "
+                  f"{ep['size']}x{ep['size']} (binning capacity {ep['capacity']}, steps' capacity "
+                  f"up to {ep['step_capacity']}, overflow 0, "
+                  f"mean alpha coverage {ep['alpha_coverage']:.3f} >= {MIN_ALPHA_COVERAGE}) "
+                  f"at {ep['ms_per_render']:.3f} ms per render (host wall, frames held on "
+                  f"the card); views generated, written and stacked in {ep['views_s']:.2f} s; "
+                  f"{ep['iterations']} iterations in {ep['train_s']:.2f} s "
+                  f"({ep['iterations'] / ep['train_s']:.2f} it/s); episode wall "
+                  f"{ep['views_s'] + ep['train_s']:.2f} s")
+    assert (model / "idu" / "e85.0_r300.0" / "render" / "00000.png").is_file()
+    log("8a", f"cli.train on [{card}]: Stage 1 with pseudo views {S1_ITERS} it in {t_s1:.2f} s "
+              f"(peak {peak_s1:.3f} GiB, launches fwd {s1_launches['fwd']} bwd "
+              f"{s1_launches['bwd']}); Stage 2 {IDU_EPISODES} episodes in {t_s2:.2f} s wall "
+              f"(peak {peak_s2:.3f} GiB, {n_steps} finite logged steps, overflow 0, "
+              f"{int(state.model.num_alive)} splats); launches fwd {launches['fwd']} bwd "
+              f"{launches['bwd']}")
+    del orch, state
+    torch.cuda.empty_cache()
+    return launches, model
+
+
+def flux_phase(torch, dev, card: str, frames: list):
+    """Phase 8b: FLUX.1-dev (bf16) and its VAE (fp32) at full width on two
+    1024^2 renders; returns the refiner and the refined frames."""
+    from skyfall_gs_tpu_torch.priors.flowedit import flow_edit_ode_batch
+    from skyfall_gs_tpu_torch.priors.flux import (
+        FluxConfig, FluxTransformer, build_module, flux_flops, latent_ids)
+    from skyfall_gs_tpu_torch.priors.flux_refiner import build_flux_refiner, default_conditioning
+    from skyfall_gs_tpu_torch.priors.flux_vae import VAE, VAEConfig
+
+    t_phase = time.perf_counter()
+    cfg, vcfg = FluxConfig(), VAEConfig()
+    h, w = frames[0].shape[:2]
+    lat = 2 ** (len(vcfg.ch_mult) - 1)               # pixels per latent
+    n_tok = (h // (2 * lat)) * (w // (2 * lat))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src, tar = default_conditioning(cfg, generator=gen, device=dev)
+    # bf16 against fp32 on the depth-cut model at full width.
+    cut = cfg._replace(depth_double=2, depth_single=2)
+    m32 = build_module(FluxTransformer, cut, dtype=torch.float32, device=dev, seed=0)
+    m16 = build_module(FluxTransformer, cut, dtype=torch.bfloat16, device=dev, seed=None)
+    m16.load_state_dict(m32.state_dict())
+    tok = torch.randn((1, n_tok, cfg.in_channels), generator=gen, device=dev)
+    ids = latent_ids(h // lat, w // lat, device=dev)
+    v32, v16 = m32(tok, ids, tar, 0.6), m16(tok, ids, tar, 0.6)
+    bf16_rel = rel_norm(v16, v32)
+    log("8b", f"FLUX bf16 vs fp32 at full width, depth cut to 2 double + 2 single blocks, "
+              f"hidden {cfg.hidden}, {cfg.heads} heads, {n_tok} + 64 tokens, on [{card}]: "
+              f"velocity rel norm {bf16_rel:.3e} (bound {FLUX_BF16_REL})")
+    assert bool(torch.isfinite(v16).all()) and bf16_rel <= FLUX_BF16_REL, bf16_rel
+    del m32, m16, v32, v16
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flux = build_module(FluxTransformer, cfg, dtype=torch.bfloat16, device=dev, seed=0)
+    vae = build_module(VAE, vcfg, dtype=torch.float32, device=dev, seed=1)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in flux.parameters())
+    refiner = build_flux_refiner(transformer=flux, vae=vae, cfg=cfg, vae_cfg=vcfg, device=dev)
+    enc, dec, vel = refiner.shape_fns(h, w)
+    imgs = torch.stack([torch.as_tensor(f, device=dev) for f in frames])
+    enc(imgs)
+    enc_ms, tok = cuda_wall_ms(lambda: enc(imgs), torch, 2)
+    dec_ms, out = cuda_wall_ms(lambda: dec(tok), torch, 2)
+    assert tuple(tok.shape) == (2, n_tok, cfg.in_channels) and tuple(out.shape) == (2, h, w, 3)
+    t = torch.tensor(0.6, device=dev)
+    v = vel(tok, t, tar)
+    assert bool(torch.isfinite(v).all()) and tuple(v.shape) == tuple(tok.shape)
+    vel_ms, _ = cuda_wall_ms(lambda: vel(tok, t, tar), torch, 3)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        vel(tok, t, tar)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.device_time_total / 1000) for e in prof.key_averages()
+                      if e.device_time_total > 0 and not e.key.startswith(("aten::", "cuda"))),
+                     key=lambda r: -r[1])
+    busy = sum(ms for _, ms in kernels)
+    flops = flux_flops(cfg, n_tok, 64)
+    per_image = flops["gemm"] + flops["attention"]
+    tflops = 2 * per_image / (vel_ms / 1e3) / 1e12
+    refined_ms, refined = cuda_wall_ms(lambda: refiner.run(frames, n_min=0, n_max=2), torch)
+    assert len(refined) == 2 and all(np.isfinite(r).all() and r.shape == (h, w, 3)
+                                     for r in refined)
+    sigmas = refiner.sigmas_fn(h, w)
+    same = flow_edit_ode_batch(vel, tok, tar, tar, refiner.generator(dev), [2, 2],
+                               num_steps=28, n_max=2, sigmas=sigmas)
+    noop_rel = rel_norm(same, tok)
+    # The other order of the branch input, on the window's first step.
+    t26 = sigmas[26].to(dev)
+    z_src = (1.0 - t26) * tok + t26 * torch.randn(tok.shape, generator=gen, device=dev)
+    z_other = tok + (z_src - tok)
+    other_in_rel = rel_norm(z_other, z_src)
+    other_dv_rel = rel_norm(vel(z_other, t26, tar), vel(z_src, t26, tar))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("8b", f"FLUX.1-dev at full width (FluxConfig(): {n_params / 1e9:.3f}B parameters, bf16, "
+              f"random from seed 0 on the card in {t_init:.2f} s) and its VAE (VAEConfig(), fp32) "
+              f"on two {h}x{w} renders on [{card}]: VAE encode {enc_ms / 2:.2f} ms/frame, "
+              f"decode {dec_ms / 2:.2f} ms/frame; one velocity evaluation of the 2-image batch "
+              f"{vel_ms:.2f} ms ({vel_ms / 2:.2f} ms/image), finite; {per_image / 1e12:.2f} "
+              f"TFLOP per image ({flops['gemm'] / 1e12:.2f} linear + "
+              f"{flops['attention'] / 1e12:.2f} attention) -> {tflops:.1f} TFLOP/s, "
+              f"{tflops * 1e12 / BF16_PEAK:.3f} of the dense bf16 peak (989 TFLOP/s, NVIDIA's "
+              f"H100 SXM data sheet); FlowEdit n_max 2 of 28 steps (src guidance 1.5, tar "
+              f"5.5) on both frames {refined_ms:.1f} ms; with src_cond == tar_cond the edit "
+              f"returns its latent to rel norm {noop_rel:.3e} (bound {FLUX_NOOP_REL}); the "
+              f"order z_edit + (z_src_t - x_src) would give the branches inputs {other_in_rel:.3e} "
+              f"apart (rel norm) and velocities {other_dv_rel:.3e} apart at t {float(t26):.4f}; peak "
+              f"memory {peak:.2f} GiB; 8b took {time.perf_counter() - t_phase:.1f} s")
+    log("8b", f"profile of one velocity evaluation (2 images) on [{card}]: device busy "
+              f"{busy:.1f} ms; top kernels: " + "; ".join(
+                  f"{name[:70]} {ms:.1f} ms" for name, ms in kernels[:8]))
+    assert noop_rel <= FLUX_NOOP_REL, noop_rel
+    return refiner, refined
+
+
+def moge_phase(torch, dev, card: str, frames: list):
+    """Phase 8c: MoGe (ViT-L/14, 518 px) at full width on the refined
+    frames; returns the predictor."""
+    from skyfall_gs_tpu_torch.priors.flux import build_module
+    from skyfall_gs_tpu_torch.priors.moge import MoGe, MoGePredictor, ViTConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    pred = MoGePredictor(cfg=ViTConfig(), model=build_module(MoGe, ViTConfig(), device=dev,
+                                                              seed=2))
+    pred.run(frames)
+    ms, depths = cuda_wall_ms(lambda: pred.run(frames), torch, 2)
+    h, w = frames[0].shape[:2]
+    for d in depths:
+        assert d.shape == (h, w) and np.isfinite(d).all(), d.shape
+    hw = pred._target_hw(frames[0])
+    assert abs(hw[0] / hw[1] - h / w) < 0.1, hw
+    log("8c", f"MoGe at full width (ViTConfig(): ViT-L/{ViTConfig().patch_size}, "
+              f"{ViTConfig().depth} blocks, width {ViTConfig().width}, random from seed 2, "
+              f"fp32) on the 2 refined {h}x{w} frames on [{card}]: inference at "
+              f"{hw[0]}x{hw[1]} (aspect kept), depth {h}x{w} finite, "
+              f"{ms / len(frames):.2f} ms/frame, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return pred
+
+
+def chain_phase(torch, rt, dev, card: str, tmp: Path, model: Path, refiner, pred) -> dict:
+    """Phase 8d: one IDU episode with the full-width FLUX refiner and MoGe;
+    returns the launches."""
+    from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from skyfall_gs_tpu_torch.io.scene import load_scene
+    from skyfall_gs_tpu_torch.train.idu import IDUOrchestrator
+    from skyfall_gs_tpu_torch.train.loop import Trainer
+
+    out = tmp / "stage2_chain"
+    start = model / f"chkpnt{S1_ITERS + IDU_EPISODES * IDU_ITERS}.npz"
+    scene = load_scene(str(tmp / "scene"), eval_split=True, device=dev)
+    trainer = Trainer(ModelConfig(model_path=str(out)), OptimizationConfig(**CHAIN),
+                      PipelineConfig(), scene, rng_seed=0)
+    reset_launches(rt)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.init_state(str(start))
+    orch = IDUOrchestrator(trainer, refiner, pred)
+    state = orch.run(state, trainer.start_iteration, episodes=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launches_of(rt)
+    end = trainer.start_iteration + CHAIN["idu_episode_iterations"]
+    ep = orch.episodes[0]
+    refined = sorted((out / "idu" / ep["tag"] / "render_refine").iterdir())
+    n_steps = finite_steps(out, trainer.start_iteration)
+    assert orch.max_overflow == 0, orch.max_overflow
+    assert (out / f"chkpnt{end}.npz").is_file() and len(refined) == 2 == ep["views"], refined
+    assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
+    log("8d", f"Stage-2 chain on [{card}]: one IDU episode from {start.name} with the "
+              f"full-width FLUX refiner (idu_refine, n_max 2 of 28) and MoGe on "
+              f"{ep['views']} orbit views at {ep['size']}x{ep['size']} "
+              f"({', '.join(f'{k} {v}' for k, v in CHAIN.items())}): "
+              f"views rendered, refined, depth-predicted and stacked in {ep['views_s']:.2f} s, "
+              f"{ep['iterations']} iterations in {ep['train_s']:.2f} s, {n_steps} finite logged "
+              f"steps, overflow 0, render_refine/ {len(refined)} PNGs, {out.name}/chkpnt{end}.npz "
+              f"written; wall {wall:.2f} s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches fwd "
+              f"{launches['fwd']} bwd {launches['bwd']}")
+    return launches
+
+
+def stage2_phase(torch, rt, dev, card: str, tmp: Path) -> dict:
+    """Phase 8; returns the kernels' launch counts of 8a and 8d."""
+    from skyfall_gs_tpu_torch.io.png import read_png
+
+    t_phase = time.perf_counter()
+    launches, model = idu_cli_phase(torch, rt, dev, card, tmp)
+    render = model / "idu" / "e85.0_r300.0" / "render"
+    frames = [read_png(str(render / f"{i:05d}.png")).astype(np.float32) / 255.0 for i in (0, 1)]
+    refiner, refined = flux_phase(torch, dev, card, frames)
+    pred = moge_phase(torch, dev, card, refined)
+    for k, n in chain_phase(torch, rt, dev, card, tmp, model, refiner, pred).items():
+        launches[k] += n
+    del refiner, pred
+    torch.cuda.empty_cache()
+    log(8, f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # Main
 # ----------------------------------------------------------------------------
 
@@ -947,17 +1284,22 @@ def main() -> int:
     for k, n in quality_phase(torch, rt, dev, card).items():
         launches[k] += n
 
-    # -- phase 6: the CLI chain on a scene read from disk -------------------------
     with tempfile.TemporaryDirectory(prefix="skyfall_cli_") as tmp:
+        # -- phase 6: the CLI chain on a scene read from disk ---------------------
         counts = cli_phase(torch, rt, dev, card, Path(tmp))
-    for k, n in counts.items():
-        launches[k] += n
-    torch.cuda.empty_cache()
+        for k, n in counts.items():
+            launches[k] += n
+        torch.cuda.empty_cache()
 
-    # -- phase 7: inference at full width ---------------------------------------
-    counts, fwd_err_1080p = stress_phase(torch, rt, dev, card)
-    for k, n in counts.items():
-        launches[k] += n
+        # -- phase 7: inference at full width -------------------------------------
+        counts, fwd_err_1080p = stress_phase(torch, rt, dev, card)
+        for k, n in counts.items():
+            launches[k] += n
+        torch.cuda.empty_cache()
+
+        # -- phase 8: Stage 2 on phase 6's scene ----------------------------------
+        for k, n in stage2_phase(torch, rt, dev, card, Path(tmp)).items():
+            launches[k] += n
 
     # No single PyTorch call composites depth-sorted splats: library_ms null.
     kernels = [

@@ -1,17 +1,29 @@
-"""Training CLI: the Stage-1 entry point.
+"""Training CLI: Stage 1, and Stage 2 (IDU) from a Stage-1 checkpoint.
 
 Port of ``skyfall_gs_tpu/cli/train.py``: the same flags (one per field of
 the model, pipeline and optimization configs, test / save / checkpoint
-iterations, ``--start_checkpoint``, ``--seed``, ``--profile_dir``) plus
-``--device`` (default ``cuda``; there is no fallback to the CPU).
+iterations, ``--start_checkpoint``, ``--seed``, ``--profile_dir``,
+``--iterative_datasets_update`` with ``--refiner`` and ``--depth_model``)
+plus ``--device`` (default ``cuda``; there is no fallback to the CPU) and
+``--idu_episodes`` (stop Stage 2 after that many curriculum episodes: a
+cut for smoke runs; 0, the default, runs the whole curriculum).
+
+With ``--lambda_pseudo_depth > 0`` Stage 1 supervises pseudo views with
+the ``--depth_model`` backend.  ``--iterative_datasets_update`` needs
+``--start_checkpoint`` and runs the IDU curriculum with the ``--refiner``
+backend (``flowedit`` when ``--idu_use_flow_edit``).  The ``flowedit`` and
+``moge`` backends need weights this command line cannot pass, so they
+raise ``RuntimeError``; build them with ``priors.get_refiner`` /
+``get_depth_predictor`` and a local checkpoint from Python instead.
 
 Usage:
     python -m skyfall_gs_tpu_torch.cli.train -s <scene> -m <out> [--eval] ...
+    python -m skyfall_gs_tpu_torch.cli.train -s <scene> -m <out> \
+        --iterative_datasets_update --start_checkpoint <out>/chkpnt30000.npz
     python -m skyfall_gs_tpu_torch.cli.train -s <scene> -m <out> --device cpu ...
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-Queue 1 item: ``--iterative_datasets_update`` and ``--lambda_pseudo_depth
-> 0`` (item 14), ``--gui_port`` (item 15), ``--data_parallel``,
+Queue 1 item: ``--gui_port`` (item 15), ``--data_parallel``,
 ``--shard_gaussians`` and a multi-host ``SKYFALL_*`` environment (item 16).
 """
 
@@ -49,6 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="IDU refine backend (identity|flowedit)")
     parser.add_argument("--depth_model", type=str, default="render",
                         help="monodepth backend (render|moge)")
+    parser.add_argument("--idu_episodes", type=int, default=0,
+                        help="stop Stage 2 after this many curriculum episodes, a cut "
+                             "for smoke runs (0: the whole curriculum)")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler chrome trace of ~20 steps here")
     parser.add_argument("--gui_ip", type=str, default="127.0.0.1")
@@ -73,12 +88,10 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _unported(args, pipe_cfg: PipelineConfig, opt_cfg: OptimizationConfig) -> None:
+def _unported(args, pipe_cfg: PipelineConfig) -> None:
     multi_host = bool(os.environ.get("SKYFALL_COORDINATOR")) or \
         int(os.environ.get("SKYFALL_NUM_PROCESSES", "1")) > 1
     for hit, what, item in (
-            (args.iterative_datasets_update, "--iterative_datasets_update (Stage 2)", 14),
-            (opt_cfg.lambda_pseudo_depth > 0, "pseudo-view depth supervision", 14),
             (args.gui_port, "the live viewer (--gui_port)", 15),
             (pipe_cfg.data_parallel, "--data_parallel", 16),
             (pipe_cfg.shard_gaussians, "--shard_gaussians", 16),
@@ -89,7 +102,8 @@ def _unported(args, pipe_cfg: PipelineConfig, opt_cfg: OptimizationConfig) -> No
 
 
 def main(argv=None):
-    """Train; returns ``(trainer, final train state)``."""
+    """Train; returns ``(trainer, final train state)``, and with
+    ``--iterative_datasets_update`` ``(orchestrator, final train state)``."""
     parser = build_parser()
     args = parser.parse_args(argv)
     model_cfg = extract_config(args, ModelConfig)
@@ -98,7 +112,9 @@ def main(argv=None):
 
     if not model_cfg.source_path or not model_cfg.model_path:
         parser.error("--source_path/-s and --model_path/-m are required")
-    _unported(args, pipe_cfg, opt_cfg)
+    _unported(args, pipe_cfg)
+    if args.iterative_datasets_update and not args.start_checkpoint:
+        parser.error("--start_checkpoint is required for IDU")
     device = resolve_device(args.device)
 
     seed_everything(args.seed)
@@ -107,6 +123,7 @@ def main(argv=None):
     save_config(model_cfg.model_path, model_cfg, pipe_cfg, opt_cfg)
 
     from skyfall_gs_tpu_torch.io.scene import load_scene
+    from skyfall_gs_tpu_torch.priors import get_depth_predictor, get_refiner
     from skyfall_gs_tpu_torch.train.loop import Trainer
 
     scene = load_scene(
@@ -123,8 +140,23 @@ def main(argv=None):
           f"{len(scene.test_views)} test views, "
           f"{len(scene.points)} points, extent {scene.cameras_extent:.1f}")
 
-    trainer = Trainer(model_cfg, opt_cfg, pipe_cfg, scene, rng_seed=args.seed,
-                      profile_dir=args.profile_dir)
+    depth_pred = None
+    if opt_cfg.lambda_pseudo_depth > 0:
+        depth_pred = get_depth_predictor(args.depth_model)
+    trainer = Trainer(model_cfg, opt_cfg, pipe_cfg, scene, depth_predictor=depth_pred,
+                      rng_seed=args.seed, profile_dir=args.profile_dir)
+    if args.iterative_datasets_update:
+        from skyfall_gs_tpu_torch.train.idu import IDUOrchestrator
+
+        # The backends first: one without weights fails before any work.
+        orch = IDUOrchestrator(
+            trainer=trainer,
+            refiner=get_refiner("flowedit" if opt_cfg.idu_use_flow_edit else args.refiner),
+            depth_predictor=get_depth_predictor(args.depth_model))
+        state = trainer.init_state(args.start_checkpoint)
+        state = orch.run(state, trainer.start_iteration, episodes=args.idu_episodes)
+        print("Training complete.")
+        return orch, state
     state = trainer.init_state(args.start_checkpoint)
     state = trainer.train(
         state,

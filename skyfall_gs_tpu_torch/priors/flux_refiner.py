@@ -1,0 +1,161 @@
+"""FLUX-backed FlowEdit refiner: the transformer, the VAE and conditioning.
+
+Port of ``skyfall_gs_tpu/priors/flux_refiner.py`` (the reference's
+``FlowEditRefineIDU(model_type="FLUX")``): ``build_flux_refiner`` wires
+``priors/flux.py``'s velocity field and ``priors/flux_vae.py``'s latents
+into a ``FlowEditRefiner``.  Weights come from a local diffusers directory
+(``transformer/`` and ``vae/`` of safetensors or torch files) or from the
+caller as modules or diffusers-keyed state dicts; there is no download.
+The prompt conditioning defaults to zero embeddings (a structure-keeping
+edit), as in the JAX package.
+
+The transformer runs in ``dtype`` (bf16 by default on CUDA: FLUX.1-dev is
+about 23.8 GB in bf16 and fits one 80 GB card, so the JAX package's tensor
+parallel ``flux_shard.py`` has no counterpart here); the VAE runs in
+float32, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from typing import Dict, Optional, Union
+
+import torch
+
+from skyfall_gs_tpu_torch.priors.flowedit import FlowEditRefiner
+from skyfall_gs_tpu_torch.priors.flux import (
+    FluxConfig,
+    FluxCond,
+    FluxTransformer,
+    build_module,
+    latent_ids,
+    pack_latents,
+    shifted_sigmas,
+    unpack_latents,
+)
+from skyfall_gs_tpu_torch.priors.flux_vae import VAE, VAEConfig
+
+
+def _load_torch_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Every *.safetensors / *.bin / *.pt / *.pth under ``path`` as one dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for root, _, files in os.walk(path):
+        for f in sorted(files):
+            fp = os.path.join(root, f)
+            if f.endswith(".safetensors"):
+                from safetensors.torch import load_file
+
+                sd.update(load_file(fp))
+            elif f.endswith((".bin", ".pt", ".pth")):
+                obj = torch.load(fp, map_location="cpu", weights_only=True)
+                sd.update(obj.get("state_dict", obj))
+    if not sd:
+        raise FileNotFoundError(f"no torch weights found under {path}")
+    return sd
+
+
+def default_conditioning(cfg: FluxConfig, generator: Optional[torch.Generator] = None,
+                         guidance_src: float = 1.5, guidance_tar: float = 5.5,
+                         txt_len: int = 64, device="cuda"):
+    """Zero prompt embeddings for both branches (random N(0, 0.02^2) ones
+    from ``generator`` for tests)."""
+    shapes = ((1, txt_len, cfg.joint_dim), (1, cfg.pooled_dim))
+    if generator is None:
+        src = [torch.zeros(s, device=device) for s in shapes]
+        tar = src
+    else:
+        src, tar = ([torch.randn(s, generator=generator, device=device) * 0.02
+                     for s in shapes] for _ in range(2))
+    return FluxCond(*src, guidance_src), FluxCond(*tar, guidance_tar)
+
+
+def _module(cls, cfg, given, checkpoint_path, name, dtype, device):
+    """``given`` (a module, or a state dict of diffusers keys), else the
+    weights under ``checkpoint_path/name`` (or ``checkpoint_path`` itself
+    when it has no such subdirectory), as a ``cls`` in ``dtype`` on
+    ``device``."""
+    if isinstance(given, torch.nn.Module):
+        return given.to(device=device, dtype=dtype).eval()
+    sd = given
+    if sd is None:
+        sub = os.path.join(checkpoint_path, name)
+        sd = _load_torch_dir(sub if os.path.isdir(sub) else checkpoint_path)
+    module = build_module(cls, cfg, dtype=dtype, device=device, seed=None)
+    module.load_state_dict(sd, strict=True)
+    return module
+
+
+def build_flux_refiner(
+    checkpoint_path: Optional[str] = None,
+    transformer: Union[FluxTransformer, Dict[str, torch.Tensor], None] = None,
+    vae: Union[VAE, Dict[str, torch.Tensor], None] = None,
+    src_cond: Optional[FluxCond] = None,
+    tar_cond: Optional[FluxCond] = None,
+    cfg: FluxConfig = FluxConfig(),
+    vae_cfg: VAEConfig = VAEConfig(),
+    num_steps: int = 28,
+    save_path: Optional[str] = None,
+    batch_size: int = 8,
+    seed: int = 0,
+    device="cuda",
+    dtype: Optional[torch.dtype] = None,
+) -> FlowEditRefiner:
+    """Construct the FLUX FlowEdit refine backend.
+
+    Args:
+        checkpoint_path: a diffusers pipeline directory (``transformer/``
+            and ``vae/``) or one flat directory of torch weights; read for
+            whichever of ``transformer`` / ``vae`` is not given.
+        transformer / vae: modules, or state dicts under diffusers' names.
+        src_cond / tar_cond: prompt conditioning; zero embeddings if None.
+        device: where the modules run (default the card).
+        dtype: the transformer's dtype; default bf16 on CUDA, else float32.
+    """
+    device = torch.device(device)
+    if dtype is None:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    if (transformer is None or vae is None) and checkpoint_path is None:
+        raise RuntimeError(
+            "No FLUX weights were given. Pass checkpoint_path=<local diffusers FLUX "
+            "directory> or transformer= and vae= (modules or diffusers-keyed state "
+            "dicts).")
+    transformer = _module(FluxTransformer, cfg, transformer, checkpoint_path, "transformer",
+                          dtype, device)
+    vae = _module(VAE, vae_cfg, vae, checkpoint_path, "vae", torch.float32, device)
+    if src_cond is None or tar_cond is None:
+        d_src, d_tar = default_conditioning(cfg, device=device)
+        src_cond, tar_cond = src_cond or d_src, tar_cond or d_tar
+    factor = 2 ** (len(vae_cfg.ch_mult) - 1)
+
+    # One (encode, decode, velocity) triple per image shape: each holds its
+    # own latent grid and RoPE ids (two aspect ratios can share a token count).
+    @functools.lru_cache(maxsize=None)
+    def shape_fns(height: int, width: int):
+        lh, lw = height // factor, width // factor
+        ids = latent_ids(lh, lw, device=device)
+
+        def encode_fn(imgs: torch.Tensor) -> torch.Tensor:
+            """(B, H, W, 3) in [0, 1] -> (B, L, 4 * latent_ch) tokens."""
+            return pack_latents(vae.encode(imgs * 2.0 - 1.0))[0]
+
+        def decode_fn(tok: torch.Tensor) -> torch.Tensor:
+            img = vae.decode(unpack_latents(tok, lh, lw))
+            return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
+
+        def velocity_fn(tok: torch.Tensor, t, cond: FluxCond) -> torch.Tensor:
+            return transformer(tok, ids, cond, t)
+
+        return encode_fn, decode_fn, velocity_fn
+
+    # The resolution-shifted sigma grid of each shape's token count.
+    @functools.lru_cache(maxsize=None)
+    def sigmas_fn(height: int, width: int):
+        return shifted_sigmas(num_steps, (height // (2 * factor)) * (width // (2 * factor)))
+
+    refiner = FlowEditRefiner(save_path=save_path, model_type="FLUX", shape_fns=shape_fns,
+                              src_cond=src_cond, tar_cond=tar_cond, num_steps=num_steps,
+                              seed=seed, batch_size=batch_size, sigmas_fn=sigmas_fn,
+                              device=device)
+    refiner.transformer, refiner.vae = transformer, vae
+    return refiner

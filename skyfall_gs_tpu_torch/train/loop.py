@@ -13,13 +13,21 @@ line for line in its curriculum:
   * opacity reset every ``opacity_reset_interval`` iterations (and at
     ``densify_from_iter`` on a white background) with the
     ``lambda_opacity`` cooldown;
+  * pseudo-view monodepth supervision: every ``sample_pseudo_interval``
+    iterations inside (``start_sample_pseudo``, ``end_sample_pseudo``) a
+    camera popped at random from a stack of orbit rings (elevation 80 -> 45,
+    radius 300 -> 250 over the window, regenerated when it empties) is
+    rendered, its depth predicted by ``depth_predictor`` and the step adds
+    the warm-up scaled Pearson term; the stack and the pops draw from the
+    same ``py_rng`` stream as the JAX Trainer;
   * 3D filter refresh every 100 iterations after densification;
   * step metrics through the MetricsLogger, test renders, PLY snapshots
     and checkpoints at milestones; an optional torch.profiler trace.
 
 The loop reads the device only where the JAX Trainer does: ``num_alive``
-at each densify pass, binning-capacity measurements after it, and the
-logger's flush, reports and snapshots.
+at each densify pass, binning-capacity measurements after it, the pseudo
+view's render handed to the depth predictor, and the logger's flush,
+reports and snapshots.
 
 ``pipe_cfg.fuse_steps`` is accepted and ignored: the JAX Trainer fuses
 runs of steps into one ``lax.scan`` dispatch to amortize TPU dispatch
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+from skyfall_gs_tpu_torch.core.camera import Camera, orbit_cameras
 from skyfall_gs_tpu_torch.io.gaussian_ply import save_gaussian_ply
 from skyfall_gs_tpu_torch.io.scene import SceneData, ViewGroup
 from skyfall_gs_tpu_torch.model.appearance import AppearanceConfig
@@ -73,11 +82,14 @@ from skyfall_gs_tpu_torch.viz.colormap import colorize_depth
 class Trainer:
     """Drives Stage-1 training for one scene on the scene's device.
 
+    ``depth_predictor`` maps an (H, W, 3) float32 frame in [0, 1] to an
+    (H, W) depth (a ``priors`` depth backend); with ``lambda_pseudo_depth
+    > 0`` it drives the pseudo-view supervision.
+
     Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
     Queue 1 item: ``mesh`` / ``mesh_mode`` and ``.orbax`` checkpoints
-    (multi-device, item 16), ``gui`` (item 15), a ``depth_predictor`` with
-    ``lambda_pseudo_depth > 0`` (item 14) and ``use_lpips_loss`` (it needs
-    LPIPS weights the repository does not hold).
+    (multi-device, item 16), ``gui`` (item 15) and ``use_lpips_loss`` (it
+    needs LPIPS weights the repository does not hold).
     """
 
     model_cfg: ModelConfig
@@ -99,8 +111,6 @@ class Trainer:
             (self.mesh is not None,
              f"multi-device training (mesh_mode={self.mesh_mode!r})", "ROADMAP Queue 1 item 16"),
             (self.gui is not None, "the live viewer (gui)", "ROADMAP Queue 1 item 15"),
-            (self.depth_predictor is not None and o.lambda_pseudo_depth > 0,
-             "pseudo-view depth supervision", "ROADMAP Queue 1 item 14"),
             (o.use_lpips_loss, "the LPIPS loss", "it needs LPIPS weights in the repository"),
         ]
         for hit, what, where in unported:
@@ -160,15 +170,20 @@ class Trainer:
                                                 *self.filter_cams))
 
     # ------------------------------------------------------------------
-    def _get_step_fn(self, use_depth: bool):
-        key = (use_depth, self.bin_capacity)
+    def _get_step_fn(self, use_depth: bool, use_pseudo: bool = False,
+                     photometric: bool = True, testing_render: bool = False):
+        """The step for one kind of view (cached per kind and capacity):
+        Stage-1 views take the defaults; the IDU orchestrator's views set
+        ``photometric`` and ``testing_render`` from its options."""
+        key = (use_depth, use_pseudo, photometric, testing_render, self.bin_capacity)
         if key not in self._step_fns:
             self._step_fns[key] = make_train_step(
                 self.opt_cfg, kernel_size=self.model_cfg.kernel_size,
                 backend=self.pipe_cfg.rasterizer_backend,
                 ray_jitter=self.model_cfg.ray_jitter,
                 resample_gt=self.model_cfg.resample_gt_image,
-                use_depth=use_depth, bin_capacity=self.bin_capacity)
+                use_depth=use_depth, use_pseudo=use_pseudo, photometric=photometric,
+                testing_render=testing_render, bin_capacity=self.bin_capacity)
         return self._step_fns[key]
 
     def _update_bin_capacity(self, state: TrainState) -> None:
@@ -212,6 +227,50 @@ class Trainer:
         return g, i
 
     # ------------------------------------------------------------------
+    def _pseudo_at(self, j: int) -> bool:
+        o = self.opt_cfg
+        return (o.lambda_pseudo_depth > 0 and self.depth_predictor is not None
+                and j % o.sample_pseudo_interval == 0
+                and o.start_sample_pseudo < j < o.end_sample_pseudo)
+
+    def _pseudo_curriculum(self, iteration: int):
+        o = self.opt_cfg
+        span = max(o.end_sample_pseudo - o.start_sample_pseudo, 1)
+        t = (o.end_sample_pseudo - iteration) / span
+        return t * (80.0 - 45.0) + 45.0, t * (300.0 - 250.0) + 250.0
+
+    def _gen_pseudo_stack(self, iteration: int) -> list:
+        return self._gen_pseudo_stack_at(*self._pseudo_curriculum(iteration))
+
+    def _gen_pseudo_stack_at(self, elevation: float, radius: float) -> list:
+        """``num_pseudo_cams // 8`` rings of 8 cameras at 512x512, each
+        ring around a Gaussian-drawn target and under a random train uid."""
+        o = self.opt_cfg
+        cams = []
+        for _ in range(max(o.num_pseudo_cams // 8, 1)):
+            target = [self.py_rng.gauss(0.0, o.target_std),
+                      self.py_rng.gauss(0.0, o.target_std), 0.0]
+            uid = self.py_rng.randrange(max(self.scene.num_train, 1))
+            cams.extend(orbit_cameras(target, elevation, radius, num_cams=8, num_samples=1,
+                                      width=512, height=512, fov_deg=60.0, uids=[uid] * 8,
+                                      device=self.device))
+        return cams
+
+    def _pseudo_inputs(self, state: TrainState, camera: Camera, predictor,
+                       scale: float) -> dict:
+        """The step's ``pseudo_*`` arguments for ``camera``: its render (at a
+        capacity measured for it) through ``predictor`` on the host."""
+        cap = measure_bin_capacity(state.model, [camera],
+                                   kernel_size=self.model_cfg.kernel_size)
+        out = make_eval_render(self.model_cfg.kernel_size, self.pipe_cfg.rasterizer_backend,
+                               bin_capacity=cap)(state.model, camera, self.bg)
+        depth = predictor(torch.clamp(out.color, 0.0, 1.0).cpu().numpy())
+        return {"pseudo_camera": camera,
+                "pseudo_gt_depth": torch.as_tensor(np.asarray(depth, np.float32),
+                                                   device=self.device),
+                "pseudo_scale": scale, "pseudo_bin_capacity": cap}
+
+    # ------------------------------------------------------------------
     def train(self, state: Optional[TrainState] = None,
               iterations: Optional[int] = None,
               test_iterations: tuple = (),
@@ -230,6 +289,7 @@ class Trainer:
         )
         lambda_opacity = o.lambda_opacity
         cooldown = None
+        pseudo_stack: list = []
         t_start = time.time()
         first_iter = self.start_iteration + 1
         if self.bin_capacity is None:
@@ -250,10 +310,19 @@ class Trainer:
 
             g, i = self._pick_view()
             use_depth = o.lambda_depth > 0 and g.has_depth
+            use_pseudo = self._pseudo_at(iteration)
+            pseudo = {}
+            if use_pseudo:
+                if not pseudo_stack:
+                    pseudo_stack = self._gen_pseudo_stack(iteration)
+                pcam = pseudo_stack.pop(self.py_rng.randrange(len(pseudo_stack)))
+                pseudo = self._pseudo_inputs(
+                    state, pcam, self.depth_predictor,
+                    min((iteration - o.start_sample_pseudo) / 500.0, 1.0))
             cam, image, mask, depth = g.select(i)
-            state, metrics = self._get_step_fn(use_depth)(
+            state, metrics = self._get_step_fn(use_depth, use_pseudo)(
                 state, cam, image, mask, depth, self.bg, xyz_sched(iteration),
-                lambda_opacity, generator=self.generator)
+                lambda_opacity, generator=self.generator, **pseudo)
             if metrics.overflow is not None:
                 self.max_overflow = torch.maximum(self.max_overflow, metrics.overflow)
 

@@ -2,9 +2,11 @@
 
 Port of ``skyfall_gs_tpu/train/step.py`` (reference hot loop
 train.py:142-348): optional ray-jitter subpixel offsets with
-offset-resampled GT, masked L1 + SSIM photometric loss, Pearson depth loss,
-opacity binary entropy, screen-space gradient statistics through the
-dummy-input trick, and Adam with per-field LRs.
+offset-resampled GT, masked L1 + SSIM photometric loss (dropped with
+``photometric=False``, for unrefined IDU views), Pearson depth loss,
+opacity binary entropy, the optional pseudo-view monodepth term (a second
+render at ``pseudo_camera``, warm-up scaled), screen-space gradient
+statistics through the dummy-input trick, and Adam with per-field LRs.
 
 PyTorch runs eagerly, so there is no jit; the step updates the parameters,
 Adam moments and densification statistics IN PLACE (one copy of each) and
@@ -91,6 +93,8 @@ def _build_grads_fn(
     ray_jitter: bool = False,
     resample_gt: bool = False,
     use_depth: bool = True,
+    use_pseudo: bool = False,
+    photometric: bool = True,
     testing_render: bool = False,
     bin_capacity: Optional[int] = None,
 ):
@@ -100,21 +104,32 @@ def _build_grads_fn(
 
     Signature:
         grads(model, camera, gt_image (H,W,3), gt_mask (H,W), gt_depth (H,W),
-              bg (3,), lambda_opacity, generator=None, subpixel_offset=None)
+              bg (3,), lambda_opacity, generator=None, subpixel_offset=None,
+              pseudo_camera=None, pseudo_gt_depth=None, pseudo_scale=None,
+              pseudo_bin_capacity=None)
             -> (loss, aux dict, grads GaussianParams,
                 (d mean2d (C,2), AbsGS d mean2d (C,2)))
 
     With ``ray_jitter`` the per-pixel subpixel offsets are drawn uniform in
     [-0.5, 0.5) from ``generator`` unless ``subpixel_offset`` gives them.
     ``testing_render`` renders with the fixed test-time appearance
-    embedding instead of the camera's own.  The gradients cover every
-    present parameter leaf, the appearance MLP and embeddings included.
+    embedding instead of the camera's own.  ``photometric=False`` drops the
+    L1 + SSIM term.  ``use_pseudo`` adds ``pseudo_scale *
+    lambda_pseudo_depth`` times the Pearson loss of a render at
+    ``pseudo_camera`` against ``pseudo_gt_depth`` (a NaN loss counts 0),
+    binned at ``pseudo_bin_capacity``; its overflow adds to the metric's.
+    The gradients cover every present parameter leaf, the appearance MLP
+    and embeddings included.
     """
 
     def grads_fn(model: GaussianModelState, camera: Camera, gt_image, gt_mask,
                  gt_depth, bg, lambda_opacity: float,
                  generator: Optional[torch.Generator] = None,
-                 subpixel_offset: Optional[torch.Tensor] = None):
+                 subpixel_offset: Optional[torch.Tensor] = None,
+                 pseudo_camera: Optional[Camera] = None,
+                 pseudo_gt_depth: Optional[torch.Tensor] = None,
+                 pseudo_scale: float = 1.0,
+                 pseudo_bin_capacity: Optional[int] = None):
         dev = model.params.xyz.device
         h, w = camera.height, camera.width
         subpix = None
@@ -142,14 +157,27 @@ def _build_grads_fn(
         if resample_gt and subpix is not None:
             gt = resample_with_offset(gt, subpix)
 
-        total, ll1 = photometric_loss(image.permute(2, 0, 1), gt.permute(2, 0, 1),
-                                      opt_cfg.lambda_dssim)
+        if photometric:
+            total, ll1 = photometric_loss(image.permute(2, 0, 1), gt.permute(2, 0, 1),
+                                          opt_cfg.lambda_dssim)
+        else:
+            total = ll1 = torch.zeros((), device=dev)
         d_loss = torch.zeros((), device=dev)
         if use_depth and opt_cfg.lambda_depth > 0:
             d_loss = depth_pearson_loss(gt_depth * gt_mask, out.depth * gt_mask)
             total = total + opt_cfg.lambda_depth * d_loss
         o_loss = opacity_entropy_loss(get_opacity(leaves), model.aux.alive)
         total = total + lambda_opacity * o_loss
+        overflow = out.overflow
+        if use_pseudo:
+            pout = render(m, pseudo_camera, bg, kernel_size=kernel_size, backend=backend,
+                          bin_capacity=pseudo_bin_capacity, with_normals=False)
+            pd = depth_pearson_loss(pseudo_gt_depth, pout.depth)
+            pd = torch.where(torch.isnan(pd), torch.zeros_like(pd), pd)
+            total = total + pseudo_scale * opt_cfg.lambda_pseudo_depth * pd
+            d_loss = d_loss + pd
+            if pout.overflow is not None:
+                overflow = overflow + pout.overflow
 
         paths, tensors = zip(*flat_fields(leaves))
         inputs = [*tensors, dummy, abs_dummy]
@@ -161,7 +189,7 @@ def _build_grads_fn(
             "opacity_loss": o_loss.detach(),
             "radii": out.radii,
             "psnr": psnr(image.detach(), gt.detach()),
-            "overflow": out.overflow,
+            "overflow": overflow,
         }
         return (total.detach(), aux, from_flat(GaussianParams, zip(paths, grads[:-2])),
                 (grads[-2], grads[-1]))
@@ -176,20 +204,21 @@ def make_train_step(opt_cfg, **kwargs):
     Signature:
         step(state, camera, gt_image (H,W,3), gt_mask (H,W), gt_depth (H,W),
              bg (3,), xyz_lr, lambda_opacity, generator=None,
-             subpixel_offset=None) -> (state, StepMetrics)
+             subpixel_offset=None, **pseudo) -> (state, StepMetrics)
 
-    ``state`` is updated in place and returned.
+    ``pseudo`` holds the grads function's ``pseudo_*`` arguments when built
+    with ``use_pseudo``.  ``state`` is updated in place and returned.
     """
     grads_fn = _build_grads_fn(opt_cfg, **kwargs)
 
     def step(state: TrainState, camera: Camera, gt_image, gt_mask, gt_depth, bg,
              xyz_lr: float, lambda_opacity: float,
              generator: Optional[torch.Generator] = None,
-             subpixel_offset: Optional[torch.Tensor] = None):
+             subpixel_offset: Optional[torch.Tensor] = None, **pseudo):
         model = state.model
         loss, aux, grads, (g_mean2d, g_abs) = grads_fn(
             model, camera, gt_image, gt_mask, gt_depth, bg, lambda_opacity,
-            generator, subpixel_offset)
+            generator, subpixel_offset, **pseudo)
         add_densification_stats(model.aux, g_mean2d, g_abs, aux["radii"],
                                 camera.width, camera.height)
         adam_update(grads, state.opt, model.params,

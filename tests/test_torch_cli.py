@@ -182,8 +182,6 @@ def test_ges_path_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--iterative_datasets_update"], 14),
-    (["--lambda_pseudo_depth", "0.5"], 14),
     (["--gui_port", "6009"], 15),
     (["--data_parallel", "2"], 16),
     (["--shard_gaussians", "-1"], 16),

@@ -225,7 +225,7 @@ def test_ply_matches_jax(scenes, tmp_path):
         "x", "y", "z", "nx", "ny", "nz", "f_dc_0", "f_dc_1", "f_dc_2"]
 
 
-@pytest.mark.parametrize("case", ["mesh", "gui", "pseudo_depth", "lpips", "orbax"])
+@pytest.mark.parametrize("case", ["mesh", "gui", "lpips", "orbax"])
 def test_unported_options_raise(scenes, tmp_path, case):
     _, tscene, _ = scenes
     kw, opt = {}, {}
@@ -233,8 +233,6 @@ def test_unported_options_raise(scenes, tmp_path, case):
         kw["mesh"] = object()
     elif case == "gui":
         kw["gui"] = object()
-    elif case == "pseudo_depth":
-        kw["depth_predictor"], opt["lambda_pseudo_depth"] = (lambda images: images), 0.5
     elif case == "lpips":
         opt["use_lpips_loss"] = True
     with pytest.raises(NotImplementedError, match="not ported"):
