@@ -65,12 +65,26 @@ Phases, one line each:
      n_max 2 of 28 steps, and the edit with equal conditions against its
      input; (8c) MoGe (ViT-L/14 at 518 px) on the refined frames; (8d) one
      IDU episode with both priors (idu_refine, 2 views at 1024x1024, 100
-     iterations).
+     iterations); (8e) T5-XXL and CLIP-L text at full width (bf16, random)
+     beside the FLUX refiner: bf16 against fp32 on 2-layer full-width
+     encoders, ms per prompt (T5 at 512 tokens, CLIP at 77),
+     ``encode_prompts`` on random token ids, one FlowEdit frame (n_max 2)
+     on that conditioning and the peak memory with all three resident;
+  9. the evaluation suites and the LPIPS loss: (9a) LPIPS alex and vgg at
+     full width on random weights, the card's score against the CPU's, ms
+     per 1024^2 pair, one LPIPS-loss step on the card against the CPU, and
+     the Trainer with ``use_lpips_loss`` on phase 5's scene (seed 0, 500
+     iterations); (9b) ``cli.eval_geometry`` on phase 6's median-seed
+     checkpoint against the DSM of the city's ground-truth splat centres,
+     failing past DSM_MAX_MAE / DSM_MIN_COMPLETENESS; (9c)
+     ``cli.eval_photometric`` of the lowest-PSNR seed's orbit video against
+     phase 6's, ``paired_metrics`` with the VGG LPIPS on the card and
+     ``distribution_metrics`` through a random CLIP ViT-L/14-336 (fp32).
 Each measurement line carries the card's name and power limit.  The last
 three lines before the final one are a summary of the kernels at the bench
 shape (time, bound, share of it, plain version, launches, ptxas), their
-JSON record (launches counted over phases 3, 5, 6, 7, 8a and 8d) and the card's
-name and power limit; the final line is the JSON result.  Any failure
+JSON record (launches counted over phases 3, 5, 6, 7, 8a, 8d and 9) and the
+card's name and power limit; the final line is the JSON result.  Any failure
 raises, and the script exits non-zero without a result.  There is no CPU path.
 """
 
@@ -152,6 +166,55 @@ CHAIN = dict(idu_refine=True, idu_num_cams=2, idu_num_samples_per_view=1, idu_gr
              idu_flow_edit_n_max=2, idu_episode_iterations=100, idu_densify_until_iter=75,
              idu_opacity_reset_interval=50, idu_opacity_cooling_iterations=10,
              idu_testing_interval=100, idu_position_lr_max_steps=100)
+
+# 8e: T5-XXL and CLIP-L text at full width (bf16, random) beside 8b's FLUX.
+# Random prompts: T5 at FLUX.1-dev's 512 tokens (a 40-token prompt, </s>,
+# then padding), CLIP at its 77 (a 20-token prompt padded with EOS, as
+# FLUX's CLIP tokenizer pads).
+T5_TOKENS = 512
+T5_PROMPT = 40
+CLIP_PROMPT = 20
+TEXT_BF16_REL = 3e-2          # bf16 against fp32 on the 2-layer encoders, as for FLUX
+
+# Phase 9: the evaluation suites and the LPIPS loss.  LPIPS weights are
+# random at the published widths (torchvision layouts: conv index, out,
+# in, kernel); TF32 is off, so the card's float32 convolutions agree with
+# the CPU's to float32 summation order.
+LPIPS_LAYERS = {
+    "alex": ((0, 64, 3, 11, 4, 2), (3, 192, 64, 5, 1, 2), (6, 384, 192, 3, 1, 1),
+             (8, 256, 384, 3, 1, 1), (10, 256, 256, 3, 1, 1)),
+    "vgg": tuple((i, o, c, 3, 1, 1) for i, o, c in (
+        (0, 64, 3), (2, 64, 64), (5, 128, 64), (7, 128, 128), (10, 256, 128), (12, 256, 256),
+        (14, 256, 256), (17, 512, 256), (19, 512, 512), (21, 512, 512), (24, 512, 512),
+        (26, 512, 512), (28, 512, 512))),
+}
+LPIPS_TAP_WIDTHS = {"alex": (64, 192, 384, 256, 256), "vgg": (64, 128, 256, 512, 512)}
+LPIPS_CARD_REL = 1e-4         # the card's score against the CPU's, 256^2 pair
+LPIPS_ITERS = 500             # the LPIPS Trainer run on phase 5's scene, seed 0
+# 9b: the ground-truth DSM is rasterize_dsm of the satellite city's own
+# ground-truth splat centres (write_satellite_scene's recipe and seed) on a
+# 1 m grid over the 220 m disk.  That truth is the highest centre in each
+# cell, and a building's centres lie anywhere between the ground and its
+# roof, so even the ground-truth splats score far from zero against it:
+# through cli.eval_geometry on the CPU, their depth renders from the 16
+# views give MAE 12.61 m / completeness 0.560 at 128 px and 12.73 m /
+# 0.967 at 256 px (a flat DSM at 0 m gives 10.04 m).  The bounds hold a
+# trained model to that order: MAE at most 20 m (a model that lost its
+# geometry, floating or collapsed splats, lands tens of metres off) and
+# completeness at least 0.8 (at 512 px the cloud covers most of the
+# truth's cells).
+DSM_ROI = (-224.0, -224.0, 448, 1.0)    # xoff, yoff, size, resolution (m)
+DSM_MAX_MAE = 20.0
+DSM_MIN_COMPLETENESS = 0.8
+LPIPS_TIMING_SIZE = 1024      # ms per pair at 1024^2, eval_photometric's frame size
+# 9c: eval_photometric's defaults (30 frames resized to 1024^2); the
+# distribution metrics take the first CLIP_FRAMES frames of each set (256
+# patches of 512^2 each) through a random CLIP ViT-L/14-336 in fp32.
+PHOTO_FRAMES = 30
+PHOTO_SIZE = 1024
+CLIP_FRAMES = 2
+CLIP_VISION = dict(hidden_size=1024, intermediate_size=4096, num_hidden_layers=24,
+                   num_attention_heads=16, image_size=336, patch_size=14, projection_dim=768)
 
 
 def log(phase, msg: str) -> None:
@@ -368,8 +431,53 @@ def bench_inputs(torch, rt, model, cam, cap: int):
 # Phase 5: the Trainer on the quality scene
 # ----------------------------------------------------------------------------
 
-def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: bool):
-    """Train one Trainer seed on ``scene`` and return its record."""
+def card_vs_cpu_step(torch, dev, opt_cfg, lpips=None) -> dict:
+    """One training step's loss and gradients on the card against the same
+    step on the CPU (the plain kernels) on a 600-splat 64 px scene with ray
+    jitter and offset-resampled GT (phase 4); with ``lpips`` (a function
+    of the device returning an ``LPIPS``) the LPIPS-swapped loss (9a)."""
+    from skyfall_gs_tpu_torch.core.camera import orbit_cameras
+    from skyfall_gs_tpu_torch.model.gaussians import (
+        create_from_points, flat_fields, state_from_numpy, state_to_numpy)
+    from skyfall_gs_tpu_torch.train.step import _build_grads_fn
+
+    rng = np.random.default_rng(1)
+    n = 600
+    small = create_from_points(rng.normal(0, 1.0, (n, 3)), rng.uniform(0, 1, (n, 3)),
+                               capacity=768)
+    small.active_sh_degree = 3
+    small.aux.filter_3d.fill_(0.05)
+    small.params.features_rest.copy_(torch.from_numpy(
+        rng.normal(0, 0.1, tuple(small.params.features_rest.shape)).astype(np.float32)))
+    host = state_to_numpy(small)
+    img = 64
+    cam_c = orbit_cameras([0, 0, 0], 30.0, 4.0, num_cams=1, width=img, height=img)[0]
+    view = [rng.uniform(0, 1, (img, img, 3)), np.ones((img, img)),
+            rng.uniform(1, 5, (img, img))]
+    offset = rng.uniform(-0.5, 0.5, (img, img, 2)).astype(np.float32)
+    results = []
+    for d in (torch.device("cpu"), dev):
+        grads_fn = _build_grads_fn(opt_cfg, use_depth=True, ray_jitter=True, resample_gt=True,
+                                   lpips_fn=None if lpips is None else lpips(d).score)
+        st = state_from_numpy(host, device=d)
+        v = [torch.from_numpy(a.astype(np.float32)).to(d) for a in view]
+        results.append(grads_fn(st, cam_c.to(d), *v, torch.zeros(3, device=d), 0.01,
+                                subpixel_offset=torch.from_numpy(offset).to(d)))
+    (loss_c, _, g_c, dd_c), (loss_g, _, g_g, dd_g) = results
+    g_card = dict(flat_fields(g_g))
+    grad_rel = {k: rel_norm(g_card[k].cpu(), v) for k, v in flat_fields(g_c)}
+    grad_rel["mean2d"] = rel_norm(dd_g[0].cpu(), dd_c[0])
+    grad_rel["mean2d_abs"] = rel_norm(dd_g[1].cpu(), dd_c[1])
+    return {"img": img, "n": n, "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+            "loss_rel": abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
+            "grad_rel": grad_rel, "worst": max(grad_rel, key=grad_rel.get)}
+
+
+def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: bool,
+                       iters: int = Q_ITERS, lpips=None):
+    """Train one Trainer seed on ``scene`` for ``iters`` iterations (with
+    the LPIPS photometric loss when ``lpips``, an ``LPIPS``, is given) and
+    return its record."""
     from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
     from skyfall_gs_tpu_torch.io.synthetic import test_psnr
     from skyfall_gs_tpu_torch.model.gaussians import flat_fields
@@ -379,19 +487,21 @@ def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: boo
 
     model_cfg = ModelConfig(model_path=out_dir, kernel_size=0.1, appearance_enabled=True,
                             appearance_n_fourier_freqs=4, appearance_embedding_dim=32)
-    opt_cfg = OptimizationConfig(iterations=Q_ITERS, position_lr_max_steps=Q_ITERS, **Q_OPT)
+    opt_cfg = OptimizationConfig(iterations=iters, position_lr_max_steps=iters,
+                                 use_lpips_loss=lpips is not None, **Q_OPT)
     # Every step's metrics are logged (overflow included); they stay on the
     # card until the logger flushes every 200 steps.
-    logger = MetricsLogger(out_dir, log_every=1, print_every=Q_ITERS)
+    logger = MetricsLogger(out_dir, log_every=1, print_every=iters)
     trainer = Trainer(model_cfg, opt_cfg, PipelineConfig(), scene, logger=logger,
                       rng_seed=seed)
+    trainer._lpips = lpips
     state = trainer.init_state()
-    last = (Q_ITERS,) if snapshots else ()
+    last = (iters,) if snapshots else ()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(rt)
     t0 = time.perf_counter()
-    state = trainer.train(state, iterations=Q_ITERS, test_iterations=last,
+    state = trainer.train(state, iterations=iters, test_iterations=last,
                           save_iterations=last, checkpoint_iterations=last)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -410,7 +520,7 @@ def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: boo
         records = [json.loads(line) for line in f]
     steps = [r for r in records if r["type"] == "step"]
     dens = [r for r in records if r["type"] == "densify"]
-    assert len(steps) == Q_ITERS, len(steps)
+    assert len(steps) == iters, len(steps)
     bad = [r["iter"] for r in steps if not np.isfinite([r["loss"], r["psnr"]]).all()]
     assert not bad, f"seed {seed}: non-finite loss at iterations {bad[:5]}"
     for k, v in flat_fields(state.model.params):
@@ -419,18 +529,18 @@ def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: boo
     assert overflow == 0, f"seed {seed}: binning overflow {overflow}"
     assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
     if snapshots:
-        ckpt = Path(out_dir) / f"chkpnt{Q_ITERS}.npz"
-        ply = Path(out_dir) / "point_cloud" / f"iteration_{Q_ITERS}" / "point_cloud.ply"
+        ckpt = Path(out_dir) / f"chkpnt{iters}.npz"
+        ply = Path(out_dir) / "point_cloud" / f"iteration_{iters}" / "point_cloud.ply"
         assert ply.is_file() and ply.stat().st_size > 0, ply
         back = trainer.init_state(start_checkpoint=str(ckpt))
-        assert trainer.start_iteration == Q_ITERS and back.step == state.step
+        assert trainer.start_iteration == iters and back.step == state.step
         for (k, a), (_, b) in zip(flat_fields(back.model.params), flat_fields(state.model.params)):
             assert bool(torch.equal(a, b)), f"checkpoint round trip changed {k}"
     return {"seed": seed, "psnr": psnr, "ssim": float(np.mean(ssims)),
             "n_splats": int(state.model.num_alive),
             "capacity": state.model.params.capacity, "densify_passes": len(dens),
             "n_dropped": sum(r["n_dropped"] for r in dens), "max_overflow": overflow,
-            "wall_s": wall, "it_per_s": Q_ITERS / wall, "peak_gib": peak,
+            "wall_s": wall, "it_per_s": iters / wall, "peak_gib": peak,
             "launches": launches}
 
 
@@ -461,7 +571,7 @@ def quality_phase(torch, rt, dev, card: str) -> dict:
            f"(gate: median >= {Q_MIN_MEDIAN_PSNR} dB); phase 5 took "
            f"{time.perf_counter() - t_phase:.1f} s")
     assert med["psnr"] >= Q_MIN_MEDIAN_PSNR, f"median test PSNR {med['psnr']:.3f} dB"
-    return {k: sum(r["launches"][k] for r in runs) for k in ("fwd", "bwd")}
+    return {k: sum(r["launches"][k] for r in runs) for k in ("fwd", "bwd")}, runs[0]
 
 
 # ----------------------------------------------------------------------------
@@ -474,8 +584,10 @@ def mib(path: Path) -> str:
     return f"{path.stat().st_size / 2**20:.2f} MiB"
 
 
-def cli_phase(torch, rt, dev, card: str, tmp: Path) -> dict:
-    """Phase 6; returns the kernels' launch counts."""
+def cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
+    """Phase 6; returns the kernels' launch counts, and what phase 9 reads:
+    the scene directory, the orbit path, the RGB orbit video and the median
+    and lowest-PSNR seeds' runs."""
     from skyfall_gs_tpu_torch.cli import create_fused_ply, gen_render_path, render_video
     from skyfall_gs_tpu_torch.cli import train as train_cli
     from skyfall_gs_tpu_torch.io.scene import load_scene
@@ -581,7 +693,8 @@ def cli_phase(torch, rt, dev, card: str, tmp: Path) -> dict:
              f"{time.perf_counter() - t_phase:.1f} s")
     assert med["psnr"] >= PSNR_FLOOR_DB, \
         f"median test PSNR {med['psnr']:.3f} dB under the floor {PSNR_FLOOR_DB}"
-    return launches
+    return launches, {"scene": scene_dir, "path": path, "rgb": artifacts["ckpt_rgb"],
+                      "median": med, "lowest": min(runs, key=lambda r: r["psnr"])}
 
 
 # ----------------------------------------------------------------------------
@@ -1050,6 +1163,106 @@ def chain_phase(torch, rt, dev, card: str, tmp: Path, model: Path, refiner, pred
     return launches
 
 
+def text_phase(torch, dev, card: str, refiner, frames: list) -> None:
+    """Phase 8e: T5-XXL and CLIP-L text at full width (bf16, random from
+    seeds 3 and 4 on the card) beside 8b's FLUX refiner: bf16 against fp32
+    on 2-layer full-width encoders, ms per prompt, encode_prompts on random
+    token ids and one FlowEdit frame on that conditioning."""
+    from skyfall_gs_tpu_torch.priors.flux import build_module
+    from skyfall_gs_tpu_torch.priors.flux_refiner import encode_prompts
+    from skyfall_gs_tpu_torch.priors.text_encoders import (
+        CLIPTextConfig, CLIPTextEncoder, T5Config, T5Encoder, init_clip_text, init_t5)
+
+    t_phase = time.perf_counter()
+    t5c, cc = T5Config(), CLIPTextConfig()
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def t5_ids():
+        ids = torch.zeros((1, T5_TOKENS), dtype=torch.long, device=dev)
+        ids[0, :T5_PROMPT] = torch.randint(2, t5c.vocab, (T5_PROMPT,), generator=gen, device=dev)
+        ids[0, T5_PROMPT] = 1                                     # </s>, then pad id 0
+        return ids
+
+    def clip_ids():
+        ids = torch.full((1, cc.max_len), cc.eos_id, dtype=torch.long, device=dev)
+        ids[0, 0] = cc.eos_id - 1                                 # <|startoftext|>
+        ids[0, 1:CLIP_PROMPT] = torch.randint(0, cc.eos_id - 1, (CLIP_PROMPT - 1,),
+                                              generator=gen, device=dev)
+        return ids
+
+    def jax_scale_t5(cfg, dtype, device, seed):
+        """init_t5_params' scales: every matrix N(0, 0.02^2), the embedding N(0, 1)."""
+        m = build_module(T5Encoder, cfg, dtype=dtype, device=device, seed=seed)
+        with torch.no_grad():
+            m.shared.weight.normal_(0.0, 1.0,
+                                    generator=torch.Generator(device=device).manual_seed(seed))
+        return m
+
+    rels = {}
+    for name, cls, cut, init, ids in (
+            ("T5", T5Encoder, t5c._replace(layers=2), init_t5, t5_ids()),
+            ("CLIP", CLIPTextEncoder, cc._replace(layers=2), init_clip_text, clip_ids()),
+            ("T5 at the JAX init scales", T5Encoder, t5c._replace(layers=2), jax_scale_t5,
+             t5_ids())):
+        m32 = init(cut, dtype=torch.float32, device=dev, seed=3)
+        m16 = build_module(cls, cut, dtype=torch.bfloat16, device=dev, seed=None)
+        m16.load_state_dict(m32.state_dict())
+        o32, o16 = m32(ids), m16(ids)
+        pairs = [(o16, o32)] if cls is T5Encoder else list(zip(o16, o32))
+        assert all(bool(torch.isfinite(a).all()) for a, _ in pairs), name
+        rels[name] = max(rel_norm(a.float(), b) for a, b in pairs)
+        if cls is T5Encoder:       # the weights' bf16 rounding alone, fp32 activations
+            m32.load_state_dict({k: v.to(torch.bfloat16) for k, v in m32.state_dict().items()})
+            rels[name + ", bf16 weights only"] = rel_norm(m32(ids), o32)
+        del m32, m16, o32, o16
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t5 = init_t5(t5c, dtype=torch.bfloat16, device=dev, seed=3)
+    clip = init_clip_text(cc, dtype=torch.bfloat16, device=dev, seed=4)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_t5, n_clip = (sum(p.numel() for p in m.parameters()) for m in (t5, clip))
+    src_t5, tar_t5, src_clip, tar_clip = t5_ids(), t5_ids(), clip_ids(), clip_ids()
+    t5(src_t5), clip(src_clip)
+    t5_ms, _ = cuda_wall_ms(lambda: t5(src_t5), torch, 5)
+    clip_ms, _ = cuda_wall_ms(lambda: clip(src_clip), torch, 10)
+    src, tar = encode_prompts(src_t5, tar_t5, src_clip, tar_clip, t5, clip)
+    for c in (src, tar):
+        assert tuple(c.txt.shape) == (1, T5_TOKENS, t5c.d_model), c.txt.shape
+        assert tuple(c.pooled.shape) == (1, cc.width), c.pooled.shape
+        assert bool(torch.isfinite(c.txt).all() & torch.isfinite(c.pooled).all())
+    # Linear layers: 2 flops per weight per token; attention QK^T and PV.
+    t5_flops = 2 * T5_TOKENS * t5c.layers * (4 * t5c.d_model ** 2 + 3 * t5c.d_model * t5c.d_ff) \
+        + t5c.layers * 4 * T5_TOKENS ** 2 * t5c.d_model
+    clip_flops = 2 * cc.max_len * cc.layers * 12 * cc.width ** 2 \
+        + cc.layers * 4 * cc.max_len ** 2 * cc.width
+    refiner.src_cond, refiner.tar_cond = src, tar
+    edit_ms, edited = cuda_wall_ms(lambda: refiner.run(frames[:1], n_min=0, n_max=2), torch)
+    h, w = frames[0].shape[:2]
+    assert len(edited) == 1 and edited[0].shape == (h, w, 3) and np.isfinite(edited[0]).all()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    jax_scale = "T5 at the JAX init scales"
+    log("8e", f"text encoders at full width on [{card}]: bf16 vs fp32 on 2-layer full-width "
+              f"encoders: T5 {rels['T5']:.3e} (its bf16 weights alone "
+              f"{rels['T5, bf16 weights only']:.3e}), CLIP {rels['CLIP']:.3e} (rel norm, bound "
+              f"{TEXT_BF16_REL}); not gated: T5 with init_t5_params' scales (N(0, 0.02^2) "
+              f"matrices, no 1/sqrt(d)) {rels[jax_scale]:.3e}, its bf16 weights alone "
+              f"{rels[jax_scale + ', bf16 weights only']:.3e}; T5-XXL (T5Config(): {n_t5 / 1e9:.3f}B parameters) and CLIP-L "
+              f"text (CLIPTextConfig(): {n_clip / 1e6:.1f}M) in bf16, random from seeds 3 / 4 in "
+              f"{t_init:.2f} s: T5 {t5_ms:.2f} ms per {T5_TOKENS}-token prompt "
+              f"({t5_flops / 1e12:.2f} TFLOP, {t5_flops / (t5_ms / 1e3) / 1e12:.1f} TFLOP/s), "
+              f"CLIP {clip_ms:.2f} ms per {cc.max_len}-token prompt ({clip_flops / 1e9:.1f} "
+              f"GFLOP); encode_prompts -> txt (1, {T5_TOKENS}, {t5c.d_model}), pooled (1, "
+              f"{cc.width}), finite; one FlowEdit frame (n_max 2 of 28) on that conditioning "
+              f"{edit_ms:.1f} ms, finite; peak memory with FLUX, T5 and CLIP resident "
+              f"{peak:.2f} GiB; 8e took {time.perf_counter() - t_phase:.1f} s")
+    assert max(rels["T5"], rels["CLIP"]) <= TEXT_BF16_REL, rels
+    del t5, clip
+    torch.cuda.empty_cache()
+
+
 def stage2_phase(torch, rt, dev, card: str, tmp: Path) -> dict:
     """Phase 8; returns the kernels' launch counts of 8a and 8d."""
     from skyfall_gs_tpu_torch.io.png import read_png
@@ -1062,9 +1275,244 @@ def stage2_phase(torch, rt, dev, card: str, tmp: Path) -> dict:
     pred = moge_phase(torch, dev, card, refined)
     for k, n in chain_phase(torch, rt, dev, card, tmp, model, refiner, pred).items():
         launches[k] += n
-    del refiner, pred
+    del pred
+    torch.cuda.empty_cache()
+    text_phase(torch, dev, card, refiner, refined)
+    del refiner
     torch.cuda.empty_cache()
     log(8, f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# Phase 9: the evaluation suites and the LPIPS loss
+# ----------------------------------------------------------------------------
+
+def lpips_state(net: str, seed: int):
+    """Random LPIPS weights at the published widths (numpy state dicts in
+    torchvision / lpips layouts): He-scaled convolutions, non-negative
+    heads."""
+    rng = np.random.default_rng(seed)
+    backbone = {}
+    for i, o, c, k, _, _ in LPIPS_LAYERS[net]:
+        backbone[f"{i}.weight"] = (rng.normal(size=(o, c, k, k))
+                                   * np.sqrt(2.0 / (c * k * k))).astype(np.float32)
+        backbone[f"{i}.bias"] = rng.normal(0, 0.05, o).astype(np.float32)
+    lin = {f"lin{t}.model.1.weight": np.abs(rng.normal(0, 0.1, (1, c, 1, 1)))
+           .astype(np.float32) for t, c in enumerate(LPIPS_TAP_WIDTHS[net])}
+    return backbone, lin
+
+
+def lpips_flops(net: str, size: int) -> int:
+    """Convolution flops of one LPIPS pair (two images) at size^2, with the
+    max pools where eval/lpips.py places them."""
+    flops, h = 0, size
+    for n, (i, o, c, k, stride, pad) in enumerate(LPIPS_LAYERS[net]):
+        if net == "alex" and i in (3, 6):
+            h = (h - 3) // 2 + 1
+        if net == "vgg" and i in (5, 10, 17, 24):
+            h //= 2
+        h = (h + 2 * pad - k) // stride + 1
+        flops += 2 * o * c * k * k * h * h
+    return 2 * flops
+
+
+def lpips_phase(torch, rt, dev, card: str, q_seed0: dict) -> dict:
+    """Phase 9a: LPIPS alex / vgg at full width on the card against the CPU,
+    ms per 1024^2 pair, one LPIPS-loss step against the CPU, and the
+    Trainer with use_lpips_loss on phase 5's scene; returns the launches."""
+    from skyfall_gs_tpu_torch.config import OptimizationConfig
+    from skyfall_gs_tpu_torch.eval.lpips import LPIPS
+    from skyfall_gs_tpu_torch.io.synthetic import make_city_scene
+
+    t_phase = time.perf_counter()
+    states = {"alex": lpips_state("alex", 0), "vgg": lpips_state("vgg", 1)}
+    rng = np.random.default_rng(9)
+    a = rng.uniform(-1, 1, (1, 256, 256, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.2, a.shape), -1, 1).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    big = [torch.rand((1, LPIPS_TIMING_SIZE, LPIPS_TIMING_SIZE, 3), generator=gen, device=dev)
+           * 2 - 1 for _ in range(2)]
+    for net, sd in states.items():
+        lp = LPIPS(net, *sd, device=dev)
+        with torch.no_grad():
+            s_card = float(lp.score(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)))
+            s_cpu = float(LPIPS(net, *sd, device="cpu").score(torch.from_numpy(a),
+                                                                torch.from_numpy(b)))
+            lp.score(*big)
+            ms = cuda_ms(lambda: lp.score(*big), 5, torch)
+        rel = abs(s_card - s_cpu) / abs(s_cpu)
+        flops = lpips_flops(net, LPIPS_TIMING_SIZE)
+        log("9a", f"LPIPS {net} at full width (random weights) on [{card}]: 256^2 pair card "
+                  f"{s_card:.6f} cpu {s_cpu:.6f} (rel {rel:.2e}, bound {LPIPS_CARD_REL}); "
+                  f"{ms:.2f} ms per {LPIPS_TIMING_SIZE}^2 pair ({flops / 1e12:.3f} TFLOP fp32, "
+                  f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, TF32 off)")
+        assert np.isfinite(s_card) and rel <= LPIPS_CARD_REL, (net, rel)
+        del lp
+    del big
+
+    r = card_vs_cpu_step(torch, dev, OptimizationConfig(),
+                         lpips=lambda d: LPIPS("alex", *states["alex"], device=d))
+    log("9a", f"LPIPS-loss step (alex, lambda_dssim 0.2), {r['img']}px / {r['n']} splats, "
+              f"ray jitter + resampled GT: loss card {r['loss_card']:.6f} cpu "
+              f"{r['loss_cpu']:.6f} (rel {r['loss_rel']:.2e}, tol 1e-4); worst grad rel norm "
+              f"{r['worst']} {r['grad_rel'][r['worst']]:.2e} (tol 1e-3)")
+    assert r["loss_rel"] <= 1e-4, r["loss_rel"]
+    assert r["grad_rel"][r["worst"]] <= 1e-3, r["grad_rel"]
+
+    with tempfile.TemporaryDirectory(prefix="skyfall_lpips_") as tmp:
+        scene = make_city_scene(tmp, device=dev, **Q_SCENE)
+        t = train_quality_seed(torch, rt, scene, 0, str(Path(tmp) / "lpips"), snapshots=False,
+                               iters=LPIPS_ITERS,
+                               lpips=LPIPS("alex", *states["alex"], device=dev))
+    log("9a", f"Trainer with use_lpips_loss (alex) on phase 5's scene, seed 0, {LPIPS_ITERS} "
+              f"iterations on [{card}]: {t['it_per_s']:.2f} it/s (phase 5 seed 0 without "
+              f"LPIPS {q_seed0['it_per_s']:.2f} it/s), test PSNR {t['psnr']:.3f} dB, finite "
+              f"loss and parameters, max overflow {t['max_overflow']}, n_splats "
+              f"{t['n_splats']}, peak memory {t['peak_gib']:.3f} GiB, launches fwd "
+              f"{t['launches']['fwd']} bwd {t['launches']['bwd']}; 9a took "
+              f"{time.perf_counter() - t_phase:.1f} s")
+    return t["launches"]
+
+
+def geometry_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
+    """Phase 9b: cli.eval_geometry on phase 6's median-seed checkpoint and
+    scene against the DSM of the city's ground-truth splat centres;
+    returns the launches."""
+    import cv2
+
+    from skyfall_gs_tpu_torch.cli import eval_geometry
+    from skyfall_gs_tpu_torch.eval.geometry import rasterize_dsm
+    from skyfall_gs_tpu_torch.io.synthetic import satellite_city
+    from skyfall_gs_tpu_torch.model import render as render_mod
+
+    pts, _ = satellite_city(np.random.default_rng(SAT_SCENE["seed"]), SAT_SCENE["n_points"])
+    truth = rasterize_dsm(pts.astype(np.float64), *DSM_ROI)
+    gt_dir = tmp / "dsm_truth"
+    gt_dir.mkdir()
+    assert cv2.imwrite(str(gt_dir / "CITY_DSM.tif"), truth.astype(np.float32))
+    np.savetxt(gt_dir / "CITY_DSM.txt", list(DSM_ROI))
+    ckpt = sat["median"]["model"] / f"chkpnt{TRAIN_ITERS}.npz"
+    render_ms = []
+    plain_render = render_mod.render
+
+    def timed_render(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_render(*args, **kwargs)
+        torch.cuda.synchronize()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    render_mod.render = timed_render
+    reset_launches(rt)
+    t0 = time.perf_counter()
+    try:
+        m = eval_geometry.main(["--checkpoint", str(ckpt), "-s", str(sat["scene"]), "--gt_dir",
+                                str(gt_dir), "--aoi_id", "CITY", "--device", DEVICE,
+                                "--csv", str(tmp / "dsm_metrics.csv")])
+    finally:
+        render_mod.render = plain_render
+    wall = time.perf_counter() - t0
+    launches = launches_of(rt)
+    log("9b", f"cli.eval_geometry on [{card}]: seed {sat['median']['seed']}'s chkpnt"
+              f"{TRAIN_ITERS}.npz over the scene's 16 views at {SAT_SCENE['size']} px against "
+              f"the DSM of its {SAT_SCENE['n_points']} ground-truth splat centres "
+              f"({int(np.isfinite(truth).sum())} of {DSM_ROI[2] ** 2} cells, ROI {DSM_ROI}): MAE "
+              f"{m['mae']:.3f} m, RMSE {m['rmse']:.3f} m, completeness {m['completeness']:.4f} "
+              f"(bounds MAE <= {DSM_MAX_MAE} m, completeness >= {DSM_MIN_COMPLETENESS}), "
+              f"shift dx {m['shift_dx']} dy {m['shift_dy']} b {float(m['shift_b']):.3f} m; "
+              f"{m['cloud_points']} cloud points; {len(render_ms)} depth renders at "
+              f"{np.median(render_ms):.3f} ms median (synchronized), overflow 0; wall "
+              f"{wall:.2f} s; launches fwd {launches['fwd']}")
+    assert np.isfinite(m["mae"]) and m["mae"] <= DSM_MAX_MAE, m
+    assert m["completeness"] >= DSM_MIN_COMPLETENESS, m
+    assert launches["fwd"] == len(render_ms) > 0, (launches, len(render_ms))
+    return launches
+
+
+def photometric_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
+    """Phase 9c: cli.eval_photometric of the lowest-PSNR seed's orbit video
+    against phase 6's, then paired_metrics with the VGG LPIPS and
+    distribution_metrics through a random CLIP ViT-L/14-336; returns the
+    launches."""
+    import shutil
+
+    from transformers import (CLIPImageProcessor, CLIPVisionConfig,
+                              CLIPVisionModelWithProjection)
+
+    from skyfall_gs_tpu_torch.cli import eval_photometric, render_video
+    from skyfall_gs_tpu_torch.eval.cmmd import ClipEmbedder
+    from skyfall_gs_tpu_torch.eval.lpips import LPIPS
+    from skyfall_gs_tpu_torch.eval.photometric import (
+        distribution_metrics, extract_frames, paired_metrics, patchify)
+
+    root = tmp / "photometric"
+    (root / "gt").mkdir(parents=True)
+    (root / "lowest").mkdir()
+    assert sat["rgb"].suffix == ".mp4", sat["rgb"]
+    shutil.copy(sat["rgb"], root / "gt" / "city.mp4")
+    low = sat["lowest"]
+    reset_launches(rt)
+    render_video.main(["--checkpoint", str(low["model"] / f"chkpnt{TRAIN_ITERS}.npz"),
+                       "--camera_path", sat["path"], "--out", str(root / "lowest" / "city.mp4"),
+                       "--device", DEVICE])
+    launches = launches_of(rt)
+    t0 = time.perf_counter()
+    rows = eval_photometric.main(["--root", str(root), "--methods", "lowest", "--scenes",
+                                  "city", "--num_frames", str(PHOTO_FRAMES), "--resize",
+                                  str(PHOTO_SIZE), "--out_csv", str(root / "eval.csv"),
+                                  "--device", DEVICE])
+    t_cli = time.perf_counter() - t0
+    assert len(rows) == 1 and np.isfinite([rows[0]["psnr"], rows[0]["ssim"]]).all(), rows
+    t0 = time.perf_counter()
+    gt = extract_frames(str(root / "gt" / "city.mp4"), PHOTO_FRAMES, PHOTO_SIZE)
+    pred = extract_frames(str(root / "lowest" / "city.mp4"), PHOTO_FRAMES, PHOTO_SIZE)
+    t_extract = time.perf_counter() - t0
+    assert len(gt) == len(pred) == PHOTO_FRAMES and gt[0].shape == (PHOTO_SIZE, PHOTO_SIZE, 3)
+    vgg = LPIPS("vgg", *lpips_state("vgg", 1), device=dev)
+    paired_metrics(gt[:1], pred[:1], vgg, device=dev)
+    pm_ms, pm = cuda_wall_ms(lambda: paired_metrics(gt, pred, vgg, device=dev), torch)
+    assert np.isfinite([pm["psnr"], pm["ssim"], pm["lpips"]]).all(), pm
+
+    with torch.device(dev):
+        torch.manual_seed(7)
+        clip = CLIPVisionModelWithProjection(CLIPVisionConfig(**CLIP_VISION))
+    side = CLIP_VISION["image_size"]
+    proc = CLIPImageProcessor(size={"shortest_edge": side},
+                              crop_size={"height": side, "width": side})
+    embed = ClipEmbedder(device=dev, model=clip.float(), processor=proc)
+    n_patches = 2 * CLIP_FRAMES * len(patchify(gt[0]))
+    dm_ms, dm = cuda_wall_ms(lambda: distribution_metrics(gt[:CLIP_FRAMES], pred[:CLIP_FRAMES],
+                                                          embed, device=dev), torch)
+    assert np.isfinite([dm["clip_fid"], dm["cmmd"]]).all(), dm
+    path_kw = dict(zip(PATH_FLAGS[::2], PATH_FLAGS[1::2]))
+    log("9c", f"cli.eval_photometric on [{card}]: seed {low['seed']}'s (lowest test PSNR "
+              f"{low['psnr']:.3f} dB) {path_kw['--num_frame']}-frame {path_kw['--width']}x"
+              f"{path_kw['--height']} orbit against seed "
+              f"{sat['median']['seed']}'s, CLI defaults ({PHOTO_FRAMES} frames at "
+              f"{PHOTO_SIZE}^2): PSNR "
+              f"{rows[0]['psnr']:.3f} dB, SSIM {rows[0]['ssim']:.4f}, {t_cli:.2f} s; "
+              f"extract_frames {t_extract:.2f} s for both sets; paired_metrics with VGG LPIPS "
+              f"on the card: PSNR {pm['psnr']:.3f} dB, SSIM {pm['ssim']:.4f}, LPIPS "
+              f"{pm['lpips']:.4f}, {pm_ms / len(gt):.2f} ms per frame pair; "
+              f"distribution_metrics on {CLIP_FRAMES} frames per set through a random CLIP "
+              f"ViT-L/14-336 (fp32): {n_patches} patches in {dm_ms / 1e3:.2f} s "
+              f"({n_patches / (dm_ms / 1e3):.1f} patches/s), CLIP-FID {dm['clip_fid']:.4f}, "
+              f"CMMD {dm['cmmd']:.4f}; launches fwd {launches['fwd']}")
+    return launches
+
+
+def eval_phase(torch, rt, dev, card: str, tmp: Path, sat: dict, q_seed0: dict) -> dict:
+    """Phase 9; returns the kernels' launch counts of 9a, 9b and 9c."""
+    t_phase = time.perf_counter()
+    launches = lpips_phase(torch, rt, dev, card, q_seed0)
+    torch.cuda.empty_cache()
+    for fn in (geometry_phase, photometric_phase):
+        for k, n in fn(torch, rt, dev, card, tmp, sat).items():
+            launches[k] += n
+        torch.cuda.empty_cache()
+    log(9, f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1089,14 +1537,11 @@ def main() -> int:
     dev = torch.device(DEVICE)
 
     from skyfall_gs_tpu_torch.config import OptimizationConfig
-    from skyfall_gs_tpu_torch.core.camera import orbit_cameras
-    from skyfall_gs_tpu_torch.model.gaussians import (
-        create_from_points, flat_fields, state_from_numpy, state_to_numpy)
+    from skyfall_gs_tpu_torch.model.gaussians import flat_fields
     from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
     from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.ops.binning import num_tiles
-    from skyfall_gs_tpu_torch.train.step import (
-        _build_grads_fn, init_train_state, make_train_step)
+    from skyfall_gs_tpu_torch.train.step import init_train_state, make_train_step
 
     # -- phase 0: the card and the toolchain ---------------------------------
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1246,47 +1691,21 @@ def main() -> int:
            f"{bound['bwd']['bound_ms'] / ms['bwd']:.3f}")
 
     # -- phase 4: one step on the card against the CPU on a small scene --------
-    rng = np.random.default_rng(1)
-    n = 600
-    small = create_from_points(rng.normal(0, 1.0, (n, 3)), rng.uniform(0, 1, (n, 3)),
-                               capacity=768)
-    small.active_sh_degree = 3
-    small.aux.filter_3d.fill_(0.05)
-    small.params.features_rest.copy_(torch.from_numpy(
-        rng.normal(0, 0.1, tuple(small.params.features_rest.shape)).astype(np.float32)))
-    host = state_to_numpy(small)
-    img = 64
-    cam_c = orbit_cameras([0, 0, 0], 30.0, 4.0, num_cams=1, width=img, height=img)[0]
-    view = [rng.uniform(0, 1, (img, img, 3)), np.ones((img, img)),
-            rng.uniform(1, 5, (img, img))]
-    grads_fn = _build_grads_fn(opt_cfg, use_depth=True, ray_jitter=True, resample_gt=True)
-    offset = rng.uniform(-0.5, 0.5, (img, img, 2)).astype(np.float32)
-    results = []
-    for d in (torch.device("cpu"), dev):
-        st = state_from_numpy(host, device=d)
-        v = [torch.from_numpy(a.astype(np.float32)).to(d) for a in view]
-        results.append(grads_fn(st, cam_c.to(d), *v, torch.zeros(3, device=d), 0.01,
-                                subpixel_offset=torch.from_numpy(offset).to(d)))
-    (loss_c, _, g_c, dd_c), (loss_g, _, g_g, dd_g) = results
-    loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
-    g_card = dict(flat_fields(g_g))
-    grad_rel = {k: rel_norm(g_card[k].cpu(), v) for k, v in flat_fields(g_c)}
-    grad_rel["mean2d"] = rel_norm(dd_g[0].cpu(), dd_c[0])
-    grad_rel["mean2d_abs"] = rel_norm(dd_g[1].cpu(), dd_c[1])
-    worst = max(grad_rel, key=grad_rel.get)
-    log(4, f"{img}px / {n} splats, ray jitter + resampled GT: loss card {float(loss_g):.6f} "
-           f"cpu {float(loss_c):.6f} (rel {loss_rel:.2e}, tol 1e-4); worst grad rel norm "
-           f"{worst} {grad_rel[worst]:.2e} (tol 1e-3)")
-    assert loss_rel <= 1e-4, loss_rel
-    assert grad_rel[worst] <= 1e-3, grad_rel
+    r = card_vs_cpu_step(torch, dev, opt_cfg)
+    log(4, f"{r['img']}px / {r['n']} splats, ray jitter + resampled GT: loss card "
+           f"{r['loss_card']:.6f} cpu {r['loss_cpu']:.6f} (rel {r['loss_rel']:.2e}, tol 1e-4); "
+           f"worst grad rel norm {r['worst']} {r['grad_rel'][r['worst']]:.2e} (tol 1e-3)")
+    assert r["loss_rel"] <= 1e-4, r["loss_rel"]
+    assert r["grad_rel"][r["worst"]] <= 1e-3, r["grad_rel"]
 
     # -- phase 5: the Trainer on the quality scene ------------------------------
-    for k, n in quality_phase(torch, rt, dev, card).items():
+    counts, q_seed0 = quality_phase(torch, rt, dev, card)
+    for k, n in counts.items():
         launches[k] += n
 
     with tempfile.TemporaryDirectory(prefix="skyfall_cli_") as tmp:
         # -- phase 6: the CLI chain on a scene read from disk ---------------------
-        counts = cli_phase(torch, rt, dev, card, Path(tmp))
+        counts, sat = cli_phase(torch, rt, dev, card, Path(tmp))
         for k, n in counts.items():
             launches[k] += n
         torch.cuda.empty_cache()
@@ -1299,6 +1718,10 @@ def main() -> int:
 
         # -- phase 8: Stage 2 on phase 6's scene ----------------------------------
         for k, n in stage2_phase(torch, rt, dev, card, Path(tmp)).items():
+            launches[k] += n
+
+        # -- phase 9: the evaluation suites and the LPIPS loss ----------------------
+        for k, n in eval_phase(torch, rt, dev, card, Path(tmp), sat, q_seed0).items():
             launches[k] += n
 
     # No single PyTorch call composites depth-sorted splats: library_ms null.

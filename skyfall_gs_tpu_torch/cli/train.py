@@ -22,9 +22,14 @@ Usage:
         --iterative_datasets_update --start_checkpoint <out>/chkpnt30000.npz
     python -m skyfall_gs_tpu_torch.cli.train -s <scene> -m <out> --device cpu ...
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-Queue 1 item: ``--gui_port`` (item 15), ``--data_parallel``,
-``--shard_gaussians`` and a multi-host ``SKYFALL_*`` environment (item 16).
+``--use_lpips_loss`` (with ``--lpips_net alex|vgg``) trains with the LPIPS
+photometric loss; it needs local LPIPS weights (torchvision's cache and the
+``lpips`` package) and raises ``RuntimeError`` without them.
+
+Not ported, each raising ``NotImplementedError`` that names where the
+ROADMAP places it: ``--gui_port`` (Queue 1: the live viewer), and
+``--data_parallel``, ``--shard_gaussians`` and a multi-host ``SKYFALL_*``
+environment (left out of the port: multi-device TPU machinery).
 """
 
 from __future__ import annotations
@@ -91,14 +96,14 @@ def resolve_device(name: str) -> torch.device:
 def _unported(args, pipe_cfg: PipelineConfig) -> None:
     multi_host = bool(os.environ.get("SKYFALL_COORDINATOR")) or \
         int(os.environ.get("SKYFALL_NUM_PROCESSES", "1")) > 1
-    for hit, what, item in (
-            (args.gui_port, "the live viewer (--gui_port)", 15),
-            (pipe_cfg.data_parallel, "--data_parallel", 16),
-            (pipe_cfg.shard_gaussians, "--shard_gaussians", 16),
-            (multi_host, "multi-host training (SKYFALL_* environment)", 16)):
+    left_out = "ROADMAP: left out of the port"
+    for hit, what, where in (
+            (args.gui_port, "the live viewer (--gui_port)", "ROADMAP Queue 1: the live viewer"),
+            (pipe_cfg.data_parallel, "--data_parallel", left_out),
+            (pipe_cfg.shard_gaussians, "--shard_gaussians", left_out),
+            (multi_host, "multi-host training (SKYFALL_* environment)", left_out)):
         if hit:
-            raise NotImplementedError(f"{what} is not ported yet "
-                                      f"(ROADMAP Queue 1 item {item})")
+            raise NotImplementedError(f"{what} is not ported ({where})")
 
 
 def main(argv=None):

@@ -95,6 +95,29 @@ def test_psnr(trainer, scene: SceneData, state) -> float:
     return float(np.mean(vals))
 
 
+def satellite_city(rng: np.random.Generator, n: int):
+    """The ground-truth Gaussian centres and colours of
+    ``write_satellite_scene``'s city block (a ground disk of radius 220 m
+    and 30 buildings 10-60 m tall), drawn from ``rng`` in the script's
+    order: (n, 3) float32 points (x east, y north, z up, metres) and (n, 3)
+    float32 colours."""
+    r = 220 * np.sqrt(rng.uniform(0, 1, n // 2))
+    th = rng.uniform(0, 2 * np.pi, n // 2)
+    ground = np.stack([r * np.cos(th), r * np.sin(th), rng.normal(0, 0.5, n // 2)], 1)
+    n_bld = 30
+    centers = rng.uniform(-180, 180, (n_bld, 2))
+    heights = rng.uniform(10, 60, n_bld)
+    bidx = rng.integers(0, n_bld, n - n // 2)
+    bld = np.stack([
+        centers[bidx, 0] + rng.normal(0, 8, n - n // 2),
+        centers[bidx, 1] + rng.normal(0, 8, n - n // 2),
+        heights[bidx] * rng.uniform(0, 1, n - n // 2),
+    ], 1)
+    pts = np.concatenate([ground, bld]).astype(np.float32)
+    cols = rng.uniform(0.15, 0.85, (n, 3)).astype(np.float32)
+    return pts, cols
+
+
 @torch.no_grad()
 def write_satellite_scene(out: str, size: int = 256, n_points: int = 40_000,
                           n_views: int = 16, seed: int = 0, device="cpu") -> int:
@@ -112,21 +135,7 @@ def write_satellite_scene(out: str, size: int = 256, n_points: int = 40_000,
     buildings) from its ground truth."""
     rng = np.random.default_rng(seed)
     n = n_points
-    # city block: ground disk + boxes ("buildings") with height
-    r = 220 * np.sqrt(rng.uniform(0, 1, n // 2))
-    th = rng.uniform(0, 2 * np.pi, n // 2)
-    ground = np.stack([r * np.cos(th), r * np.sin(th), rng.normal(0, 0.5, n // 2)], 1)
-    n_bld = 30
-    centers = rng.uniform(-180, 180, (n_bld, 2))
-    heights = rng.uniform(10, 60, n_bld)
-    bidx = rng.integers(0, n_bld, n - n // 2)
-    bld = np.stack([
-        centers[bidx, 0] + rng.normal(0, 8, n - n // 2),
-        centers[bidx, 1] + rng.normal(0, 8, n - n // 2),
-        heights[bidx] * rng.uniform(0, 1, n - n // 2),
-    ], 1)
-    pts = np.concatenate([ground, bld]).astype(np.float32)
-    cols = rng.uniform(0.15, 0.85, (n, 3)).astype(np.float32)
+    pts, cols = satellite_city(rng, n)
 
     gt = create_from_points(pts, cols, capacity=-(-n // 1024) * 1024, init_opacity=0.9,
                             device=device)

@@ -7,7 +7,8 @@ into a ``FlowEditRefiner``.  Weights come from a local diffusers directory
 (``transformer/`` and ``vae/`` of safetensors or torch files) or from the
 caller as modules or diffusers-keyed state dicts; there is no download.
 The prompt conditioning defaults to zero embeddings (a structure-keeping
-edit), as in the JAX package.
+edit), as in the JAX package; ``encode_prompts`` builds it from token ids
+through ``priors/text_encoders.py``'s T5 and CLIP encoders.
 
 The transformer runs in ``dtype`` (bf16 by default on CUDA: FLUX.1-dev is
 about 23.8 GB in bf16 and fits one 80 GB card, so the JAX package's tensor
@@ -35,6 +36,7 @@ from skyfall_gs_tpu_torch.priors.flux import (
     unpack_latents,
 )
 from skyfall_gs_tpu_torch.priors.flux_vae import VAE, VAEConfig
+from skyfall_gs_tpu_torch.priors.text_encoders import CLIPTextEncoder, T5Encoder
 
 
 def _load_torch_dir(path: str) -> Dict[str, torch.Tensor]:
@@ -68,6 +70,19 @@ def default_conditioning(cfg: FluxConfig, generator: Optional[torch.Generator] =
         src, tar = ([torch.randn(s, generator=generator, device=device) * 0.02
                      for s in shapes] for _ in range(2))
     return FluxCond(*src, guidance_src), FluxCond(*tar, guidance_tar)
+
+
+def encode_prompts(src_ids_t5, tar_ids_t5, src_ids_clip, tar_ids_clip,
+                   t5: T5Encoder, clip: CLIPTextEncoder,
+                   guidance_src: float = 1.5, guidance_tar: float = 5.5):
+    """(src_cond, tar_cond) from token ids: the T5 sequence features and
+    the CLIP pooled embedding of each prompt, on the encoders' device and
+    in their dtype.  ``*_ids_t5`` / ``*_ids_clip``: (1, L) token ids of the
+    T5 and CLIP tokenizers (the vocabularies are not in the repository)."""
+    src_txt, tar_txt = t5(src_ids_t5), t5(tar_ids_t5)
+    _, src_pool = clip(src_ids_clip)
+    _, tar_pool = clip(tar_ids_clip)
+    return FluxCond(src_txt, src_pool, guidance_src), FluxCond(tar_txt, tar_pool, guidance_tar)
 
 
 def _module(cls, cfg, given, checkpoint_path, name, dtype, device):

@@ -39,9 +39,12 @@ an entry.  Every orbit render is binned at a capacity measured over the
 orbit set, and ``max_overflow`` holds the largest overflow of any render
 or step.
 
+With ``use_lpips_loss`` both kinds of step take the Trainer's LPIPS
+scorer (``Trainer._get_step_fn``), as the JAX package's episodes do.
+
 Single device only: the JAX package's view-mesh fused windows and its
-gauss-sharded episodes raise ``NotImplementedError`` (ROADMAP Queue 1
-item 16) through the Trainer.
+gauss-sharded episodes raise ``NotImplementedError`` (ROADMAP: left out of
+the port) through the Trainer.
 """
 
 from __future__ import annotations

@@ -49,6 +49,7 @@ import torch
 
 from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
 from skyfall_gs_tpu_torch.core.camera import Camera, orbit_cameras
+from skyfall_gs_tpu_torch.eval.lpips import lpips_from_local_packages
 from skyfall_gs_tpu_torch.io.gaussian_ply import save_gaussian_ply
 from skyfall_gs_tpu_torch.io.scene import SceneData, ViewGroup
 from skyfall_gs_tpu_torch.model.appearance import AppearanceConfig
@@ -86,10 +87,15 @@ class Trainer:
     (H, W) depth (a ``priors`` depth backend); with ``lambda_pseudo_depth
     > 0`` it drives the pseudo-view supervision.
 
-    Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    Queue 1 item: ``mesh`` / ``mesh_mode`` and ``.orbax`` checkpoints
-    (multi-device, item 16), ``gui`` (item 15) and ``use_lpips_loss`` (it
-    needs LPIPS weights the repository does not hold).
+    ``use_lpips_loss`` swaps SSIM for LPIPS (``lpips_net``) in the
+    photometric term; the scorer is ``_lpips`` where the caller set one,
+    else ``eval.lpips.lpips_from_local_packages``, which raises
+    ``RuntimeError`` where no local LPIPS weights exist.
+
+    Not ported, each raising ``NotImplementedError`` that names where the
+    ROADMAP places it: ``gui`` (Queue 1: the live viewer), and ``mesh`` /
+    ``mesh_mode`` and ``.orbax`` checkpoints (left out of the port:
+    multi-device TPU machinery).
     """
 
     model_cfg: ModelConfig
@@ -108,14 +114,13 @@ class Trainer:
     def __post_init__(self):
         cfg, o = self.model_cfg, self.opt_cfg
         unported = [
-            (self.mesh is not None,
-             f"multi-device training (mesh_mode={self.mesh_mode!r})", "ROADMAP Queue 1 item 16"),
-            (self.gui is not None, "the live viewer (gui)", "ROADMAP Queue 1 item 15"),
-            (o.use_lpips_loss, "the LPIPS loss", "it needs LPIPS weights in the repository"),
+            (self.mesh is not None, f"multi-device training (mesh_mode={self.mesh_mode!r})",
+             "ROADMAP: left out of the port"),
+            (self.gui is not None, "the live viewer (gui)", "ROADMAP Queue 1: the live viewer"),
         ]
         for hit, what, where in unported:
             if hit:
-                raise NotImplementedError(f"{what} is not ported yet ({where})")
+                raise NotImplementedError(f"{what} is not ported ({where})")
         self.device = torch.device(self.scene.device)
         self.appearance = AppearanceConfig(
             enabled=cfg.appearance_enabled,
@@ -155,7 +160,7 @@ class Trainer:
         if start_checkpoint:
             if start_checkpoint.endswith(".orbax") or os.path.isdir(start_checkpoint):
                 raise NotImplementedError("sharded .orbax checkpoints are not ported "
-                                          "yet (ROADMAP Queue 1 item 16)")
+                                          "(ROADMAP: left out of the port)")
             meta = peek_checkpoint_meta(start_checkpoint)
             if meta["capacity"] != model.params.capacity:
                 state.model, state.opt = grow_capacity(state.model, state.opt,
@@ -175,7 +180,8 @@ class Trainer:
         """The step for one kind of view (cached per kind and capacity):
         Stage-1 views take the defaults; the IDU orchestrator's views set
         ``photometric`` and ``testing_render`` from its options."""
-        key = (use_depth, use_pseudo, photometric, testing_render, self.bin_capacity)
+        lpips_fn = self._get_lpips().score if self.opt_cfg.use_lpips_loss else None
+        key = (use_depth, use_pseudo, photometric, testing_render, self.bin_capacity, lpips_fn)
         if key not in self._step_fns:
             self._step_fns[key] = make_train_step(
                 self.opt_cfg, kernel_size=self.model_cfg.kernel_size,
@@ -183,8 +189,17 @@ class Trainer:
                 ray_jitter=self.model_cfg.ray_jitter,
                 resample_gt=self.model_cfg.resample_gt_image,
                 use_depth=use_depth, use_pseudo=use_pseudo, photometric=photometric,
-                testing_render=testing_render, bin_capacity=self.bin_capacity)
+                testing_render=testing_render, bin_capacity=self.bin_capacity,
+                lpips_fn=lpips_fn)
         return self._step_fns[key]
+
+    def _get_lpips(self):
+        """The LPIPS photometric-loss scorer on the scene's device (reference
+        train.py:80-85): ``self._lpips`` where already set, else built once
+        from local weights (``lpips_from_local_packages`` raises without)."""
+        if getattr(self, "_lpips", None) is None:
+            self._lpips = lpips_from_local_packages(self.opt_cfg.lpips_net, device=self.device)
+        return self._lpips
 
     def _update_bin_capacity(self, state: TrainState) -> None:
         """Right-size the binning capacity from the worst train view's

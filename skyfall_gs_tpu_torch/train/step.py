@@ -2,8 +2,8 @@
 
 Port of ``skyfall_gs_tpu/train/step.py`` (reference hot loop
 train.py:142-348): optional ray-jitter subpixel offsets with
-offset-resampled GT, masked L1 + SSIM photometric loss (dropped with
-``photometric=False``, for unrefined IDU views), Pearson depth loss,
+offset-resampled GT, masked L1 + SSIM photometric loss (L1 + LPIPS with
+``lpips_fn``; dropped with ``photometric=False``, for unrefined IDU views), Pearson depth loss,
 opacity binary entropy, the optional pseudo-view monodepth term (a second
 render at ``pseudo_camera``, warm-up scaled), screen-space gradient
 statistics through the dummy-input trick, and Adam with per-field LRs.
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +43,7 @@ from skyfall_gs_tpu_torch.model.optim import (
 from skyfall_gs_tpu_torch.model.render import render
 from skyfall_gs_tpu_torch.ops.losses import (
     depth_pearson_loss,
+    l1_loss,
     opacity_entropy_loss,
     photometric_loss,
     psnr,
@@ -97,6 +98,7 @@ def _build_grads_fn(
     photometric: bool = True,
     testing_render: bool = False,
     bin_capacity: Optional[int] = None,
+    lpips_fn: Optional[Callable] = None,
 ):
     """Build the per-view loss/gradient core: everything from render
     through the backward, but not the optimizer update or the
@@ -114,7 +116,10 @@ def _build_grads_fn(
     [-0.5, 0.5) from ``generator`` unless ``subpixel_offset`` gives them.
     ``testing_render`` renders with the fixed test-time appearance
     embedding instead of the camera's own.  ``photometric=False`` drops the
-    L1 + SSIM term.  ``use_pseudo`` adds ``pseudo_scale *
+    photometric term; with ``lpips_fn`` (``eval.lpips.LPIPS.score``: two
+    (B, H, W, 3) images in [-1, 1] -> (B,)) it is (1 - l) L1 + l LPIPS
+    instead of (1 - l) L1 + l (1 - SSIM), l = ``lambda_dssim``
+    (reference train.py:218-220).  ``use_pseudo`` adds ``pseudo_scale *
     lambda_pseudo_depth`` times the Pearson loss of a render at
     ``pseudo_camera`` against ``pseudo_gt_depth`` (a NaN loss counts 0),
     binned at ``pseudo_bin_capacity``; its overflow adds to the metric's.
@@ -157,7 +162,11 @@ def _build_grads_fn(
         if resample_gt and subpix is not None:
             gt = resample_with_offset(gt, subpix)
 
-        if photometric:
+        if photometric and lpips_fn is not None:
+            ll1 = l1_loss(image, gt)
+            lp = lpips_fn(image[None] * 2.0 - 1.0, gt[None] * 2.0 - 1.0)[0]
+            total = (1.0 - opt_cfg.lambda_dssim) * ll1 + opt_cfg.lambda_dssim * lp
+        elif photometric:
             total, ll1 = photometric_loss(image.permute(2, 0, 1), gt.permute(2, 0, 1),
                                           opt_cfg.lambda_dssim)
         else:

@@ -130,6 +130,38 @@ def test_train_episode_draws_and_checkpoint_match_jax(scenes, tmp_path, monkeypa
                                   ts.model.params.xyz.numpy())
 
 
+def test_train_episode_takes_the_lpips_step(scenes, tmp_path, monkeypatch):
+    """With ``use_lpips_loss`` every step of an episode (refined IDU views
+    and original views alike) is built with the Trainer's LPIPS scorer, as
+    the JAX package's episodes are (random alex weights, published widths)."""
+    from skyfall_gs_tpu_torch.eval.lpips import LPIPS
+    from tests.test_torch_eval import lpips_state
+
+    small_orbits(monkeypatch)
+    _, ttr, _, ts = trainers(scenes, tmp_path, **{**IDU, "idu_refine": True},
+                             use_lpips_loss=True)
+    ttr._lpips = LPIPS("alex", *lpips_state("alex", seed=6), device="cpu")
+    built, losses = [], []
+    make = tloop.make_train_step
+
+    def recording(*a, **kw):
+        built.append(kw["lpips_fn"])
+        fn = make(*a, **kw)
+
+        def step(*args, **kws):
+            state, metrics = fn(*args, **kws)
+            losses.append(float(metrics.loss))
+            return state, metrics
+        return step
+
+    monkeypatch.setattr(tloop, "make_train_step", recording)
+    ts = IDUOrchestrator(ttr, IdentityRefiner(), RenderDepthPredictor()).train_episode(
+        ts, 0, TARGETS, 60.0, 3.5, 60.0)
+    assert ts.step == 10 and len(losses) == 10 and np.isfinite(losses).all()
+    assert len(built) >= 2 and all(fn == ttr._lpips.score for fn in built)
+    assert int(ttr.max_overflow) == 0
+
+
 # ----------------------------------------------------------------------------
 # The command line
 # ----------------------------------------------------------------------------

@@ -175,6 +175,37 @@ def test_flux_velocity_matches_jax(rng, route, guidance):
     assert got.dtype == torch.float32 and rel(got, want) <= 1e-4, rel(got, want)
 
 
+def test_flux_bf16_route_matches_jax_production_dtype():
+    """The card's dtype policy against the JAX package's production one at
+    full width (FluxConfig(), depth cut to 1 double + 1 single block, random
+    N(0, 0.02^2) weights, an 8x8-token latent and 16 text tokens): the port
+    runs bf16 activations with float32 norm statistics, RoPE, scores and
+    softmax; JAX runs bf16 parameters with float32 activations.  Both hold
+    the same bf16 weights; bound 3e-2 norm-relative on the velocity, the
+    card's bf16-vs-fp32 bound."""
+    cfg = tf.FluxConfig()._replace(depth_double=1, depth_single=1)
+    m16 = tf.build_module(tf.FluxTransformer, cfg, dtype=torch.bfloat16, device="cpu", seed=0)
+    params = jf.convert_torch_state_dict(
+        {k: v.float().numpy() for k, v in m16.state_dict().items()},
+        jf.FluxConfig(**cfg._asdict()))
+    params = jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), params)
+    rng = np.random.default_rng(4)
+    ids = np.array(jf.pack_latents(jnp.zeros((1, 16, 16, 4)))[1])
+    tok = rng.normal(size=(1, len(ids), cfg.in_channels)).astype(np.float32)
+    txt = rng.normal(size=(1, 16, cfg.joint_dim)).astype(np.float32)
+    pooled = rng.normal(size=(1, cfg.pooled_dim)).astype(np.float32)
+    want = jf.flux_velocity(params, jf.FluxConfig(**cfg._asdict()), jnp.asarray(tok),
+                            jnp.asarray(ids), jf.FluxCond(jnp.asarray(txt),
+                                                          jnp.asarray(pooled), 3.5),
+                            jnp.asarray([0.6], jnp.float32))
+    assert want.dtype == jnp.float32
+    got = tf.flux_velocity(m16, torch.from_numpy(tok), torch.from_numpy(ids),
+                           tf.FluxCond(torch.from_numpy(txt), torch.from_numpy(pooled), 3.5),
+                           torch.tensor([0.6]))
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert rel(got, want) <= 3e-2, rel(got, want)
+
+
 def test_packing_rope_ids_and_sigmas_exact(rng):
     z = rng.normal(size=(2, 6, 10, 4)).astype(np.float32)
     tok_j, ids_j = jf.pack_latents(jnp.asarray(z))

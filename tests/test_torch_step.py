@@ -268,3 +268,43 @@ def test_eval_render_is_the_forward_kernel_alone(scene):
     assert not out.color.requires_grad
     np.testing.assert_array_equal(out.color.numpy(), ref.color.detach().numpy())
     np.testing.assert_array_equal(out.depth.numpy(), ref.depth.detach().numpy())
+
+
+@pytest.mark.parametrize("net", ["alex", "vgg"])
+def test_lpips_step_matches_jax(net):
+    """The LPIPS-swapped photometric loss, (1 - l) L1 + l LPIPS, at 64 px
+    with random LPIPS weights at the published widths: the JAX step with
+    ``LPIPS._jitted`` against the port's with ``LPIPS.score``; loss 1e-4
+    relative, gradients 1e-3 norm-relative."""
+    from skyfall_gs_tpu.eval.lpips import LPIPS as JLPIPS
+    from skyfall_gs_tpu_torch.eval.lpips import LPIPS as TLPIPS
+    from tests.test_torch_eval import lpips_state
+
+    size = 64
+    rng = np.random.default_rng(8)
+    n, cap = 300, 384
+    st = create_from_points(rng.normal(0, 0.8, (n, 3)).astype(np.float32),
+                            rng.uniform(0, 1, (n, 3)).astype(np.float32), capacity=cap)
+    st = st.replace(aux=st.aux.replace(filter_3d=jnp.full(cap, 0.05)))
+    view = (rng.uniform(0, 1, (size, size, 3)).astype(np.float32),
+            np.ones((size, size), np.float32),
+            rng.uniform(1, 5, (size, size)).astype(np.float32))
+    jcam, tcam = cameras(size, size)
+    backbone, lin = lpips_state(net)
+    cfg = OptimizationConfig(lambda_dssim=0.4)
+    loss_j, aux_j, g_j, (gd_j, _) = jax.jit(jstep._build_grads_fn(
+        cfg, use_depth=True, lpips_fn=JLPIPS(net, backbone, lin)._jitted))(
+        st, jcam, *map(jnp.asarray, view), jnp.zeros(3), jax.random.PRNGKey(0),
+        LAMBDA_OPACITY)
+    loss, aux, g, (gd, _) = tstep._build_grads_fn(
+        cfg, use_depth=True, lpips_fn=TLPIPS(net, backbone, lin, device="cpu").score)(
+        port_state(st), tcam, *map(_t, view), torch.zeros(3), LAMBDA_OPACITY)
+    np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-4)
+    np.testing.assert_allclose(float(aux["l1"]), float(aux_j["l1"]), rtol=1e-5)
+    # without the scorer the step is the L1 + SSIM one: a different loss
+    plain = tstep._build_grads_fn(cfg, use_depth=True)(
+        port_state(st), tcam, *map(_t, view), torch.zeros(3), LAMBDA_OPACITY)[0]
+    assert abs(float(plain) - float(loss)) > 1e-2 * float(loss)
+    for k, v in tg.flat_fields(g):
+        assert_rel(v, getattr(g_j, k), 1e-3)
+    assert_rel(gd, gd_j, 1e-3)

@@ -225,6 +225,34 @@ def test_ply_matches_jax(scenes, tmp_path):
         "x", "y", "z", "nx", "ny", "nz", "f_dc_0", "f_dc_1", "f_dc_2"]
 
 
+def test_trainer_with_lpips_loss_matches_jax(scenes, tmp_path):
+    """``use_lpips_loss`` with a preset ``_lpips`` scorer (random alex
+    weights at the published widths) on both Trainers: the same picks and
+    losses (1e-4 relative) for 12 iterations."""
+    from skyfall_gs_tpu.eval.lpips import LPIPS as JLPIPS
+    from skyfall_gs_tpu_torch.eval.lpips import LPIPS as TLPIPS
+    from tests.test_torch_eval import lpips_state
+
+    jscene, tscene, _ = scenes
+    backbone, lin = lpips_state("alex", seed=3)
+    opt = opt_cfg(use_lpips_loss=True, lambda_dssim=0.3)
+    jtr = JTrainer(model_cfg(tmp_path / "j"), opt, PipelineConfig(fuse_steps=1), jscene,
+                   rng_seed=5)
+    ttr = TTrainer(model_cfg(tmp_path / "t"), opt, PipelineConfig(), tscene, rng_seed=5)
+    jtr._lpips = JLPIPS("alex", backbone, lin)
+    ttr._lpips = TLPIPS("alex", backbone, lin, device="cpu")
+    js = jtr.init_state()
+    ts = tstep.init_train_state(tg.state_from_numpy(jax_state_to_numpy(js.model)))
+    jpicks, jloss, tpicks, tloss = [], [], [], []
+    _record(jtr, jpicks, jloss)
+    _record(ttr, tpicks, tloss)
+    jtr.train(js, iterations=12)
+    ts = ttr.train(ts, iterations=12)
+    assert tpicks == jpicks and len(tloss) == 12
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-4)
+    assert {k[-1] for k in ttr._step_fns} == {ttr._lpips.score}
+
+
 @pytest.mark.parametrize("case", ["mesh", "gui", "lpips", "orbax"])
 def test_unported_options_raise(scenes, tmp_path, case):
     _, tscene, _ = scenes
@@ -234,7 +262,13 @@ def test_unported_options_raise(scenes, tmp_path, case):
     elif case == "gui":
         kw["gui"] = object()
     elif case == "lpips":
-        opt["use_lpips_loss"] = True
+        # Ported: the step's scorer comes from local LPIPS weights, and
+        # without them lpips_from_local_packages raises.
+        tr = TTrainer(model_cfg(tmp_path), opt_cfg(use_lpips_loss=True), PipelineConfig(),
+                      tscene)
+        with pytest.raises(RuntimeError, match="unavailable locally"):
+            tr._get_step_fn(use_depth=True)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         tr = TTrainer(model_cfg(tmp_path), opt_cfg(**opt), PipelineConfig(), tscene, **kw)
         tr.init_state(start_checkpoint=str(tmp_path / "ckpt.orbax"))
