@@ -79,11 +79,25 @@ Phases, one line each:
      failing past DSM_MAX_MAE / DSM_MIN_COMPLETENESS; (9c)
      ``cli.eval_photometric`` of the lowest-PSNR seed's orbit video against
      phase 6's, ``paired_metrics`` with the VGG LPIPS on the card and
-     ``distribution_metrics`` through a random CLIP ViT-L/14-336 (fp32).
+     ``distribution_metrics`` through a random CLIP ViT-L/14-336 (fp32);
+ 10. the live viewer and the small tools on phase 6's scene and median-seed
+     checkpoint: (10a) a Trainer with a ``NetworkGUI`` serves one 1920x1080
+     SIBR request for test camera 0 through ``_poll_gui``, byte-equal to the
+     direct render of that camera; (10b) ``cli.train --gui_port`` for 300
+     iterations while a viewer thread takes one 1080p frame per iteration,
+     pausing training (train false, keep_alive true) for 20 frames: every
+     frame full-size and not the plain background, the paused frames
+     identical, 320 frames in all, zero overflow, ms per frame and it/s;
+     (10c) ``cli.align_ges`` on 8 frames rendered from the checkpoint at a
+     target altitude of 25 m, within the final bracket of it; (10d) launcher
+     jobs train two copies of the scene (200 iterations, one slot each) and
+     fail on a missing scene, then ``cli.render_videos`` renders two 512 px
+     orbits from each checkpoint.
 Each measurement line carries the card's name and power limit.  The last
 three lines before the final one are a summary of the kernels at the bench
 shape (time, bound, share of it, plain version, launches, ptxas), their
-JSON record (launches counted over phases 3, 5, 6, 7, 8a, 8d and 9) and the
+JSON record (launches counted over phases 3, 5, 6, 7, 8a, 8d, 9 and 10a-10c;
+10d's jobs run in subprocesses and are not counted) and the
 card's name and power limit; the final line is the JSON result.  Any failure
 raises, and the script exits non-zero without a result.  There is no CPU path.
 """
@@ -215,6 +229,31 @@ PHOTO_SIZE = 1024
 CLIP_FRAMES = 2
 CLIP_VISION = dict(hidden_size=1024, intermediate_size=4096, num_hidden_layers=24,
                    num_attention_heads=16, image_size=336, patch_size=14, projection_dim=768)
+
+# Phase 10: the live viewer, align_ges, the launcher and render_videos on
+# phase 6's scene and median-seed checkpoint.
+VIEW_W, VIEW_H = 1920, 1080   # the SIBR viewer's window
+VIEWER_ITERS = 300            # 10b: cli.train --gui_port
+VIEWER_TRAIN_FRAMES = 100     # then VIEWER_PAUSED_FRAMES with train false, keep_alive true
+VIEWER_PAUSED_FRAMES = 20
+VIEWER_TIMEOUT = 60.0         # every viewer socket and join
+# 10c: "GES" frames rendered from the median checkpoint along align_ges'
+# default orbit (45 deg, 200 m, fov 60) around (0, 0, GES_Z_STAR).  The
+# search range is narrowed from the default [-50, 150] m: on this scene's
+# city SSIM(altitude) is not unimodal there (on the CPU it dips to a
+# minimum 10-30 m below 0 and rises again toward -50 m, and its far tail
+# wiggles by ~0.01 at 64 px), while on [-10, 110] m it rises to z* and
+# falls after it (tests/test_torch_tools.py).  The gate is the final
+# bracket width.
+GES_FRAMES = 8
+GES_Z_STAR = 25.0
+GES_RANGE = (-10.0, 110.0)
+GES_ITERS = 8
+# 10d: two copies of phase 6's scene trained by launcher jobs, then
+# render_videos of two 512 px orbits from each.
+LAUNCH_ITERS = 200
+VIDEO_SIZE = 512
+VIDEO_FRAMES = 24
 
 
 def log(phase, msg: str) -> None:
@@ -1517,6 +1556,366 @@ def eval_phase(torch, rt, dev, card: str, tmp: Path, sat: dict, q_seed0: dict) -
 
 
 # ----------------------------------------------------------------------------
+# Phase 10: the live viewer, align_ges, the launcher and render_videos
+# ----------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def viewer_camera(test, device):
+    """A VIEW_W x VIEW_H camera at ``test``'s pose and vertical FoV."""
+    from skyfall_gs_tpu_torch.core.camera import make_camera
+
+    w2c = test.world_view.cpu().numpy()
+    fovy = 2 * float(np.arctan(float(test.tan_fovy)))
+    fovx = 2 * float(np.arctan(np.tan(fovy / 2) * VIEW_W / VIEW_H))
+    return make_camera(w2c[:3, :3].T, w2c[:3, 3], fovx, fovy, VIEW_W, VIEW_H,
+                       znear=test.znear, zfar=test.zfar, device=device)
+
+
+def sibr_request(cam, train: bool = True, keep_alive: bool = False) -> dict:
+    """The SIBR request for ``cam``: the matrices transposed to row-major with
+    the sign flips that NetworkGUI.receive undoes."""
+    wv_t = cam.world_view.cpu().numpy().T.copy()
+    wv_t[:, 1] *= -1
+    wv_t[:, 2] *= -1
+    fp_t = cam.full_proj.cpu().numpy().T.copy()
+    fp_t[:, 1] *= -1
+    return {"resolution_x": cam.width, "resolution_y": cam.height, "train": train,
+            "keep_alive": keep_alive, "scaling_modifier": 1.0,
+            "fov_x": 2 * float(np.arctan(float(cam.tan_fovx))),
+            "fov_y": 2 * float(np.arctan(float(cam.tan_fovy))),
+            "z_near": cam.znear, "z_far": cam.zfar, "shs_python": False,
+            "rot_scale_python": False, "view_matrix": wv_t.flatten().tolist(),
+            "view_projection_matrix": fp_t.flatten().tolist()}
+
+
+class ViewerClient:
+    """A SIBR remote viewer in a thread: connects (retrying until the port
+    listens), then sends ``request(i)`` for i = 0, 1, ... and reads each
+    reply until ``request`` returns None or the trainer closes the
+    connection.  Keeps each frame, its verify string and its wall ms."""
+
+    def __init__(self, port: int, request):
+        import threading
+
+        self.frames, self.verify, self.ms, self.error, self.closed = [], [], [], None, False
+        self.thread = threading.Thread(target=self._run, args=(port, request), daemon=True)
+        self.thread.start()
+
+    @staticmethod
+    def _recv(c, n: int) -> bytes:
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = c.recv(min(n - len(buf), 1 << 20))
+            if not chunk:
+                raise ConnectionError("the trainer closed the viewer connection")
+            buf += chunk
+        return bytes(buf)
+
+    def _run(self, port: int, request) -> None:
+        import socket
+
+        try:
+            deadline = time.monotonic() + VIEWER_TIMEOUT
+            while True:
+                try:
+                    c = socket.create_connection(("127.0.0.1", port), timeout=VIEWER_TIMEOUT)
+                    break
+                except ConnectionRefusedError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.01)
+            with c:
+                i = 0
+                while (msg := request(i)) is not None:
+                    raw = json.dumps(msg).encode()
+                    t0 = time.perf_counter()
+                    c.sendall(len(raw).to_bytes(4, "little") + raw)
+                    try:
+                        frame = self._recv(c, msg["resolution_x"] * msg["resolution_y"] * 3)
+                    except ConnectionError:
+                        self.closed = True
+                        return
+                    n = int.from_bytes(self._recv(c, 4), "little")
+                    self.verify.append(self._recv(c, n).decode())
+                    self.ms.append((time.perf_counter() - t0) * 1e3)
+                    self.frames.append(frame)
+                    i += 1
+        except Exception as e:   # raised again by join()
+            self.error = e
+
+    def join(self) -> None:
+        self.thread.join(VIEWER_TIMEOUT)
+        assert not self.thread.is_alive(), "the viewer client did not finish"
+        if self.error is not None:
+            raise RuntimeError(f"viewer client failed: {self.error!r}")
+
+
+def viewer_parity_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
+    """10a: one 1080p SIBR request for test camera 0, served by the Trainer's
+    _poll_gui, against the direct render of the same camera."""
+    from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from skyfall_gs_tpu_torch.io.scene import load_scene
+    from skyfall_gs_tpu_torch.model.render import measure_bin_capacity, render
+    from skyfall_gs_tpu_torch.train.loop import Trainer
+    from skyfall_gs_tpu_torch.viz.network_gui import NetworkGUI
+
+    scene = load_scene(str(sat["scene"]), eval_split=True, device=dev)
+    gui = NetworkGUI("127.0.0.1", 0)
+    trainer = Trainer(ModelConfig(source_path=str(sat["scene"]), model_path=str(tmp / "viewer"),
+                                  eval=True),
+                      OptimizationConfig(), PipelineConfig(), scene, gui=gui)
+    state = trainer.init_state(str(sat["median"]["model"] / f"chkpnt{TRAIN_ITERS}.npz"))
+    direct = viewer_camera(scene.test_views[0].camera, dev)
+    received, receive = [], gui.receive
+    gui.receive = lambda device: received.append(receive(device)) or received[-1]
+    client = ViewerClient(gui.listener.getsockname()[1],
+                          lambda i: sibr_request(direct) if i == 0 else None)
+    deadline = time.monotonic() + VIEWER_TIMEOUT
+    while gui.conn is None and time.monotonic() < deadline:
+        gui.try_connect()
+        time.sleep(0.01)
+    assert gui.conn is not None, "10a: the viewer did not connect"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._poll_gui(state, False)
+    torch.cuda.synchronize()
+    poll_ms = (time.perf_counter() - t0) * 1e3
+    gui.drop()
+    client.join()
+    got = received[0][0]
+    for k in ("world_view", "full_proj", "cam_center", "tan_fovx", "tan_fovy", "focal_x",
+              "focal_y", "cx", "cy"):
+        assert torch.equal(getattr(got, k), getattr(direct, k)), f"10a: camera field {k}"
+    assert (got.width, got.height, got.znear, got.zfar) == \
+        (direct.width, direct.height, direct.znear, direct.zfar)
+    with torch.no_grad():
+        out = render(state.model, direct, trainer.bg, testing=True, inference=True,
+                     bin_capacity=measure_bin_capacity(state.model, [direct]))
+    assert int(out.overflow) == 0
+    ref = (torch.clamp(out.color, 0, 1) * 255).to(torch.uint8).cpu().numpy().tobytes()
+    frame = np.frombuffer(client.frames[0], np.uint8)
+    n_diff = int(np.count_nonzero(frame != np.frombuffer(ref, np.uint8)))
+    log("10a", f"viewer parity on [{card}]: one {VIEW_W}x{VIEW_H} SIBR request for test "
+               f"camera 0 through Trainer._poll_gui: {len(client.frames[0])} bytes, "
+               f"{n_diff} differ from the direct render (gate: byte-equal), camera fields "
+               f"equal, verify string {client.verify[0]!r}; poll {poll_ms:.2f} ms, client "
+               f"{client.ms[0]:.2f} ms")
+    assert n_diff == 0 and len(client.frames[0]) == VIEW_W * VIEW_H * 3, "10a: frame differs"
+    assert client.verify == [str(sat["scene"])], client.verify
+
+
+def viewer_live_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
+    """10b: cli.train --gui_port with a viewer taking one 1080p frame per
+    iteration, pausing training for VIEWER_PAUSED_FRAMES frames."""
+    from skyfall_gs_tpu_torch.cli import train as train_cli
+    from skyfall_gs_tpu_torch.io.scene import load_scene
+    from skyfall_gs_tpu_torch.viz import network_gui
+
+    cam = viewer_camera(load_scene(str(sat["scene"]), eval_split=True).test_views[0].camera,
+                        "cpu")
+    train_msg = sibr_request(cam)
+    pause_msg = sibr_request(cam, train=False, keep_alive=True)
+    paused = range(VIEWER_TRAIN_FRAMES, VIEWER_TRAIN_FRAMES + VIEWER_PAUSED_FRAMES)
+    port = free_port()
+    client = ViewerClient(port, lambda i: pause_msg if i in paused else train_msg)
+
+    class ConnectedGUI(network_gui.NetworkGUI):
+        """Waits for the viewer before training starts, so that every
+        iteration serves one frame and the frame count reads the pause."""
+
+        def __init__(self, host, port):
+            super().__init__(host, port)
+            deadline = time.monotonic() + VIEWER_TIMEOUT
+            while self.conn is None and time.monotonic() < deadline:
+                self.try_connect()
+                time.sleep(0.01)
+
+    model = tmp / "viewer_run"
+    opened = network_gui.NetworkGUI
+    network_gui.NetworkGUI = ConnectedGUI
+    try:
+        t0 = time.perf_counter()
+        trainer, state = train_cli.main(
+            ["-s", str(sat["scene"]), "-m", str(model), "--iterations", str(VIEWER_ITERS),
+             "--gui_port", str(port), "--device", DEVICE, "--quiet"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        network_gui.NetworkGUI = opened
+    trainer.gui.drop()
+    client.join()
+    with open(model / "metrics.jsonl") as f:
+        steps = [r for r in map(json.loads, f) if r["type"] == "step"]
+    assert steps and all(np.isfinite([r["loss"], r["psnr"]]).all() for r in steps), \
+        "10b: non-finite loss"
+    overflow = int(trainer.max_overflow)
+    frames = client.frames
+    n_frame = VIEW_W * VIEW_H * 3
+    plain = sum(1 for f in frames if np.ptp(np.frombuffer(f, np.uint8)) == 0)
+    pause = frames[paused.start:paused.stop + 1]   # the paused frames and the resuming one
+    held = all(f == pause[0] for f in pause)
+    train_ms = [client.ms[i] for i in range(len(client.ms)) if i not in paused]
+    paused_s = sum(client.ms[i] for i in paused if i < len(client.ms)) / 1e3
+    loop_s = steps[-1]["elapsed"]
+    log("10b", f"cli.train --gui_port on [{card}]: {VIEWER_ITERS} iterations, the viewer "
+               f"took {len(frames)} frames of {VIEW_W}x{VIEW_H} ({VIEWER_PAUSED_FRAMES} with "
+               f"train false / keep_alive true after frame {VIEWER_TRAIN_FRAMES}; expected "
+               f"{VIEWER_ITERS + VIEWER_PAUSED_FRAMES}), paused frames identical {held}, "
+               f"plain-background frames {plain}, max overflow {overflow}, final loss "
+               f"{steps[-1]['loss']:.5f}; per viewer frame (client wall, request to last "
+               f"byte) median {np.median(train_ms):.2f} ms, p90 "
+               f"{np.percentile(train_ms, 90):.2f} ms; {VIEWER_ITERS / loop_s:.2f} it/s "
+               f"over the loop with the viewer attached ({VIEWER_ITERS / (loop_s - paused_s):.2f}"
+               f" it/s without the {paused_s:.2f} s paused; phase 6 median seed without a "
+               f"viewer {sat['median']['it_s']:.2f} it/s); wall {wall:.1f} s")
+    assert len(frames) == VIEWER_ITERS + VIEWER_PAUSED_FRAMES, "10b: the pause did not hold"
+    assert client.closed, "10b: the trainer served a frame after its last iteration"
+    assert all(len(f) == n_frame for f in frames), "10b: a short frame"
+    assert held, "10b: the model moved while the viewer paused training"
+    assert frames[0] != frames[VIEWER_TRAIN_FRAMES - 1], "10b: training did not move the model"
+    assert plain == 0, f"10b: {plain} frames of the plain background"
+    assert overflow == 0, f"10b: binning overflow {overflow}"
+    assert client.verify == [str(sat["scene"])] * len(frames)
+
+
+def align_ges_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
+    """10c: cli.align_ges on GES_FRAMES frames rendered from the median
+    checkpoint at the target altitude GES_Z_STAR."""
+    import argparse
+
+    import cv2
+
+    from skyfall_gs_tpu_torch.cli import align_ges
+    from skyfall_gs_tpu_torch.cli.render_video import load_state_from_checkpoint
+    from skyfall_gs_tpu_torch.model.render import measure_bin_capacity, render
+    from skyfall_gs_tpu_torch.viz.paths import gen_orbit_path, parse_trajectory_json
+
+    ckpt = sat["median"]["model"] / f"chkpnt{TRAIN_ITERS}.npz"
+    state, _ = load_state_from_checkpoint(str(ckpt), device=dev)
+    cams, _ = parse_trajectory_json({
+        "render_height": VIEW_H, "render_width": VIEW_W, "camera_path": [
+            {"camera_to_world": c.flatten().tolist(), "fov": 60.0}
+            for c in gen_orbit_path([0.0, 0.0, GES_Z_STAR], 45.0, 200.0, GES_FRAMES)]},
+        device=dev)
+    ges = tmp / "ges"
+    ges.mkdir()
+    cap = measure_bin_capacity(state, cams)
+    with torch.no_grad():
+        for i, cam in enumerate(cams):
+            out = render(state, cam, torch.zeros(3, device=dev), testing=True, inference=True,
+                         bin_capacity=cap)
+            assert int(out.overflow) == 0
+            img = (torch.clamp(out.color, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+            cv2.imwrite(str(ges / f"{i:03d}.png"), img[..., ::-1])
+    lo, hi = GES_RANGE
+    t0 = time.perf_counter()
+    best = align_ges.main(["--checkpoint", str(ckpt), "--ges_frames", str(ges),
+                           "--num_frames", str(GES_FRAMES), "--iters", str(GES_ITERS),
+                           "--alt_lo", str(lo), "--alt_hi", str(hi),
+                           "--out_path", str(tmp / "aligned_path.json"), "--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    width = (hi - lo) * (2 / 3) ** GES_ITERS
+    args = argparse.Namespace(target_x=0.0, target_y=0.0, elevation=45.0, radius=200.0,
+                              fov=60.0)
+    ref = torch.from_numpy(np.stack(align_ges._load_frames(str(ges), GES_FRAMES)))
+    ref = ref.permute(0, 3, 1, 2).contiguous().to(dev)
+    at_z, at_best = (align_ges.score_alignment(state, a, args, ref) for a in (GES_Z_STAR, best))
+    curve = [(float(a), align_ges.score_alignment(state, float(a), args, ref))
+             for a in np.arange(-50.0, 151.0, 20.0)]
+    path = json.loads((tmp / "aligned_path.json").read_text())
+    log("10c", f"cli.align_ges on [{card}]: {GES_FRAMES} frames of {VIEW_W}x{VIEW_H}, "
+               f"{GES_ITERS} ternary steps over [{lo}, {hi}] m ({2 * GES_ITERS * GES_FRAMES} "
+               f"renders) in {wall:.2f} s wall; best {best:.3f} m, z* {GES_Z_STAR} m, "
+               f"|best - z*| {abs(best - GES_Z_STAR):.3f} m (gate: <= the final bracket "
+               f"{width:.3f} m); SSIM at z* {at_z:.4f}, at best {at_best:.4f}; SSIM over the "
+               f"default range: " + ", ".join(f"{a:.0f} m {v:.4f}" for a, v in curve))
+    assert abs(best - GES_Z_STAR) <= width, "10c: align_ges missed the altitude"
+    assert len(path["camera_path"]) == 240 and path["_target"][2] == best
+
+
+def launcher_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
+    """10d: launcher jobs train two copies of phase 6's scene (and fail on a
+    missing one), then render_videos renders two orbits from each."""
+    import os
+    import shutil
+
+    from skyfall_gs_tpu_torch.cli import render_videos
+    from skyfall_gs_tpu_torch.parallel.launcher import make_training_jobs, run_scene_jobs
+    from skyfall_gs_tpu_torch.viz.paths import save_orbit_path
+
+    data, out = tmp / "scenes", tmp / "launched"
+    for name in ("a", "b"):
+        shutil.copytree(sat["scene"], data / name)
+    # The jobs import the port from this checkout, wherever they start.
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    jobs = make_training_jobs(
+        ["a", "b", "missing"], str(data), str(out),
+        extra_args=["--iterations", str(LAUNCH_ITERS), "--checkpoint_iterations",
+                    str(LAUNCH_ITERS), "--device", DEVICE, "--quiet"],
+        python=sys.executable)
+    t0 = time.perf_counter()
+    run_scene_jobs(jobs, str(out / "logs"), num_workers=2,
+                   slot_envs=[{"CUDA_VISIBLE_DEVICES": "0"}] * 2)
+    t_train = time.perf_counter() - t0
+    codes = {j.name: j.returncode for j in jobs}
+    ckpts = [out / n / f"chkpnt{LAUNCH_ITERS}.npz" for n in ("a", "b")]
+
+    paths = tmp / "video_paths"
+    for tag, elev, radius in (("orbit45", 45.0, 300.0), ("orbit70", 70.0, 600.0)):
+        save_orbit_path(str(paths / f"camera_path_{tag}.json"), [0, 0, 0], elev, radius,
+                        num_frames=VIDEO_FRAMES, fov_deg=60.0, width=VIDEO_SIZE,
+                        height=VIDEO_SIZE)
+    t0 = time.perf_counter()
+    vjobs = render_videos.main(["--output_root", str(out), "--scenes", "a", "b",
+                                "--camera_paths", str(paths), "--iteration",
+                                str(LAUNCH_ITERS), "--num_workers", "2", "--device", DEVICE])
+    t_video = time.perf_counter() - t0
+    videos = [out / s / "videos" / f"camera_path_{t}_rgb.mp4"
+              for s in ("a", "b") for t in ("orbit45", "orbit70")]
+    written = [v if v.exists() else v.with_suffix("") for v in videos]
+    log("10d", f"launcher on [{card}] (2 slots, CUDA_VISIBLE_DEVICES=0 each): cli.train "
+               f"jobs {codes} in {t_train:.1f} s wall ({LAUNCH_ITERS} iterations each, "
+               f"checkpoints {[c.exists() for c in ckpts]}); render_videos: "
+               f"{len(vjobs)} jobs {[j.returncode for j in vjobs]} in {t_video:.1f} s wall "
+               f"({VIDEO_FRAMES} frames of {VIDEO_SIZE}^2 each): "
+               + ", ".join(f"{p.relative_to(out)} {mib(p)}" for p in written if p.exists())
+               + " (kernel launches in these subprocesses are not counted)")
+    for j in jobs:
+        if j.returncode != 0 and j.name != "missing":
+            print(Path(j.log_path).read_text()[-4000:], file=sys.stderr)
+    assert codes["a"] == 0 and codes["b"] == 0 and codes["missing"] != 0, codes
+    assert all(c.exists() for c in ckpts), "10d: a launcher checkpoint is missing"
+    assert all(j.returncode == 0 for j in vjobs), [(j.name, j.returncode) for j in vjobs]
+    assert all(p.exists() and (p.is_file() and p.stat().st_size > 0 or p.is_dir()
+                               and any(p.iterdir())) for p in written), written
+
+
+def tools_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
+    """Phase 10; returns the kernels' launch counts of 10a-10c (10d's run in
+    subprocesses)."""
+    t_phase = time.perf_counter()
+    reset_launches(rt)
+    for fn in (viewer_parity_phase, viewer_live_phase, align_ges_phase):
+        fn(torch, rt, dev, card, tmp, sat)
+        torch.cuda.empty_cache()
+    launches = launches_of(rt)
+    assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
+    launcher_phase(torch, rt, dev, card, tmp, sat)
+    log(10, f"launches in 10a-10c fwd {launches['fwd']} bwd {launches['bwd']}; phase 10 took "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # Main
 # ----------------------------------------------------------------------------
 
@@ -1722,6 +2121,11 @@ def main() -> int:
 
         # -- phase 9: the evaluation suites and the LPIPS loss ----------------------
         for k, n in eval_phase(torch, rt, dev, card, Path(tmp), sat, q_seed0).items():
+            launches[k] += n
+        torch.cuda.empty_cache()
+
+        # -- phase 10: the viewer, align_ges, the launcher and render_videos ------
+        for k, n in tools_phase(torch, rt, dev, card, Path(tmp), sat).items():
             launches[k] += n
 
     # No single PyTorch call composites depth-sorted splats: library_ms null.

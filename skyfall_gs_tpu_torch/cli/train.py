@@ -26,10 +26,14 @@ Usage:
 photometric loss; it needs local LPIPS weights (torchvision's cache and the
 ``lpips`` package) and raises ``RuntimeError`` without them.
 
+``--gui_port P`` (with ``--gui_ip``) opens the SIBR viewer bridge
+(``viz.network_gui.NetworkGUI``) on that port; the Trainer serves the
+viewer before every Stage-1 iteration.  0, the default, opens none.
+
 Not ported, each raising ``NotImplementedError`` that names where the
-ROADMAP places it: ``--gui_port`` (Queue 1: the live viewer), and
-``--data_parallel``, ``--shard_gaussians`` and a multi-host ``SKYFALL_*``
-environment (left out of the port: multi-device TPU machinery).
+ROADMAP places it: ``--data_parallel``, ``--shard_gaussians`` and a
+multi-host ``SKYFALL_*`` environment (left out of the port: multi-device
+TPU machinery).
 """
 
 from __future__ import annotations
@@ -93,17 +97,14 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _unported(args, pipe_cfg: PipelineConfig) -> None:
+def _unported(pipe_cfg: PipelineConfig) -> None:
     multi_host = bool(os.environ.get("SKYFALL_COORDINATOR")) or \
         int(os.environ.get("SKYFALL_NUM_PROCESSES", "1")) > 1
-    left_out = "ROADMAP: left out of the port"
-    for hit, what, where in (
-            (args.gui_port, "the live viewer (--gui_port)", "ROADMAP Queue 1: the live viewer"),
-            (pipe_cfg.data_parallel, "--data_parallel", left_out),
-            (pipe_cfg.shard_gaussians, "--shard_gaussians", left_out),
-            (multi_host, "multi-host training (SKYFALL_* environment)", left_out)):
+    for hit, what in ((pipe_cfg.data_parallel, "--data_parallel"),
+                      (pipe_cfg.shard_gaussians, "--shard_gaussians"),
+                      (multi_host, "multi-host training (SKYFALL_* environment)")):
         if hit:
-            raise NotImplementedError(f"{what} is not ported ({where})")
+            raise NotImplementedError(f"{what} is not ported (ROADMAP: left out of the port)")
 
 
 def main(argv=None):
@@ -117,7 +118,7 @@ def main(argv=None):
 
     if not model_cfg.source_path or not model_cfg.model_path:
         parser.error("--source_path/-s and --model_path/-m are required")
-    _unported(args, pipe_cfg)
+    _unported(pipe_cfg)
     if args.iterative_datasets_update and not args.start_checkpoint:
         parser.error("--start_checkpoint is required for IDU")
     device = resolve_device(args.device)
@@ -148,8 +149,13 @@ def main(argv=None):
     depth_pred = None
     if opt_cfg.lambda_pseudo_depth > 0:
         depth_pred = get_depth_predictor(args.depth_model)
+    gui = None
+    if args.gui_port:
+        from skyfall_gs_tpu_torch.viz.network_gui import NetworkGUI
+
+        gui = NetworkGUI(args.gui_ip, args.gui_port)
     trainer = Trainer(model_cfg, opt_cfg, pipe_cfg, scene, depth_predictor=depth_pred,
-                      rng_seed=args.seed, profile_dir=args.profile_dir)
+                      rng_seed=args.seed, gui=gui, profile_dir=args.profile_dir)
     if args.iterative_datasets_update:
         from skyfall_gs_tpu_torch.train.idu import IDUOrchestrator
 

@@ -22,12 +22,14 @@ line for line in its curriculum:
     same ``py_rng`` stream as the JAX Trainer;
   * 3D filter refresh every 100 iterations after densification;
   * step metrics through the MetricsLogger, test renders, PLY snapshots
-    and checkpoints at milestones; an optional torch.profiler trace.
+    and checkpoints at milestones; an optional torch.profiler trace;
+  * with a live viewer (``gui``), a poll before every iteration that
+    serves its frames and holds training while the viewer pauses it.
 
 The loop reads the device only where the JAX Trainer does: ``num_alive``
 at each densify pass, binning-capacity measurements after it, the pseudo
 view's render handed to the depth predictor, and the logger's flush,
-reports and snapshots.
+reports and snapshots, and each viewer frame's overflow count.
 
 ``pipe_cfg.fuse_steps`` is accepted and ignored: the JAX Trainer fuses
 runs of steps into one ``lax.scan`` dispatch to amortize TPU dispatch
@@ -61,7 +63,7 @@ from skyfall_gs_tpu_torch.model.gaussians import (
     get_opacity,
     reset_opacity,
 )
-from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
+from skyfall_gs_tpu_torch.model.render import measure_bin_capacity, render
 from skyfall_gs_tpu_torch.ops.losses import psnr as psnr_fn
 from skyfall_gs_tpu_torch.train.checkpoint import (
     load_checkpoint,
@@ -77,6 +79,7 @@ from skyfall_gs_tpu_torch.train.step import (
 )
 from skyfall_gs_tpu_torch.utils.general import expon_lr_schedule
 from skyfall_gs_tpu_torch.viz.colormap import colorize_depth
+from skyfall_gs_tpu_torch.viz.network_gui import NetworkGUI
 
 
 @dataclass
@@ -92,10 +95,13 @@ class Trainer:
     else ``eval.lpips.lpips_from_local_packages``, which raises
     ``RuntimeError`` where no local LPIPS weights exist.
 
+    ``gui`` (a ``viz.network_gui.NetworkGUI``) is polled before every
+    iteration; its frames are rendered at a binning capacity measured for
+    the request's camera, again whenever a frame overflows.
+
     Not ported, each raising ``NotImplementedError`` that names where the
-    ROADMAP places it: ``gui`` (Queue 1: the live viewer), and ``mesh`` /
-    ``mesh_mode`` and ``.orbax`` checkpoints (left out of the port:
-    multi-device TPU machinery).
+    ROADMAP places it: ``mesh`` / ``mesh_mode`` and ``.orbax`` checkpoints
+    (left out of the port: multi-device TPU machinery).
     """
 
     model_cfg: ModelConfig
@@ -105,7 +111,7 @@ class Trainer:
     depth_predictor: Optional[Callable] = None
     logger: Optional[MetricsLogger] = None
     rng_seed: int = 0
-    gui: Optional[object] = None
+    gui: Optional[NetworkGUI] = None
     profile_dir: Optional[str] = None   # torch.profiler chrome trace output
     profile_steps: int = 20
     mesh: Optional[object] = None
@@ -113,14 +119,10 @@ class Trainer:
 
     def __post_init__(self):
         cfg, o = self.model_cfg, self.opt_cfg
-        unported = [
-            (self.mesh is not None, f"multi-device training (mesh_mode={self.mesh_mode!r})",
-             "ROADMAP: left out of the port"),
-            (self.gui is not None, "the live viewer (gui)", "ROADMAP Queue 1: the live viewer"),
-        ]
-        for hit, what, where in unported:
-            if hit:
-                raise NotImplementedError(f"{what} is not ported ({where})")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"multi-device training (mesh_mode={self.mesh_mode!r}) is not ported "
+                "(ROADMAP: left out of the port)")
         self.device = torch.device(self.scene.device)
         self.appearance = AppearanceConfig(
             enabled=cfg.appearance_enabled,
@@ -314,6 +316,8 @@ class Trainer:
         prof_stop = prof_start + self.profile_steps if self.profile_dir else -1
 
         for iteration in range(first_iter, iterations + 1):
+            if self.gui is not None:
+                self._poll_gui(state, iteration < iterations)
             if cooldown is not None:
                 if cooldown > 0:
                     cooldown -= 1
@@ -381,6 +385,40 @@ class Trainer:
         if self.logger:
             self.logger.flush()
         return state
+
+    @torch.no_grad()
+    def _poll_gui(self, state: TrainState, training_active: bool) -> None:
+        """Service the live viewer (reference train.py:143-156).  A frame
+        renders at the capacity cached for its resolution; one that
+        overflows is rendered again at a capacity measured for its own
+        camera, and a second overflow raises: no frame drops entries."""
+        ks = self.model_cfg.kernel_size
+        backend = self.pipe_cfg.rasterizer_backend
+
+        def draw(camera, scaling_modifier, cap):
+            return render(state.model, camera, self.bg, kernel_size=ks,
+                          scaling_modifier=scaling_modifier, testing=True, backend=backend,
+                          bin_capacity=cap, inference=(backend == "tiled"))
+
+        def render_fn(camera, scaling_modifier):
+            key = (camera.height, camera.width)
+            if key not in self._eval_caps:
+                self._eval_caps[key] = measure_bin_capacity(state.model, [camera],
+                                                            kernel_size=ks)
+            out = draw(camera, scaling_modifier, self._eval_caps[key])
+            if out.overflow is not None and int(out.overflow):
+                self._eval_caps[key] = measure_bin_capacity(state.model, [camera],
+                                                            kernel_size=ks)
+                out = draw(camera, scaling_modifier, self._eval_caps[key])
+                if int(out.overflow):
+                    raise RuntimeError(
+                        f"viewer frame overflowed the binning capacity "
+                        f"{self._eval_caps[key]} measured for its camera "
+                        f"({int(out.overflow)} entries dropped)")
+            return torch.clamp(out.color, 0.0, 1.0)
+
+        self.gui.poll(render_fn, self.scene.source_path, training_active,
+                      device=self.device)
 
     def _start_profiler(self):
         activities = [torch.profiler.ProfilerActivity.CPU]

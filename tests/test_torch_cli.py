@@ -13,6 +13,7 @@ the render tools read checkpoints of both packages.
 
 import json
 import os
+import socket
 
 import numpy as np
 import pytest
@@ -111,8 +112,10 @@ def test_render_and_export_read_both_packages_artifacts(chain):
                                          "--out", str(out / f"{name}.mp4"), "--device", "cpu"])
         assert len(frames) == 3 and fps > 0 and (out / f"{name}.mp4").stat().st_size > 0
         assert max(float(f.max()) for f in frames) > 0.05
-        create_fused_ply.main(["-c", str(ckpt), "-o", str(out / f"{name}.ply")])
-        create_fused_ply.main(["-c", str(ckpt), "-o", str(out / f"{name}.splat")])
+        create_fused_ply.main(["-c", str(ckpt), "-o", str(out / f"{name}.ply"),
+                               "--device", "cpu"])
+        create_fused_ply.main(["-c", str(ckpt), "-o", str(out / f"{name}.splat"),
+                               "--device", "cpu"])
         n = int(state.model.num_alive)
         assert len(read_ply(str(out / f"{name}.ply"))["x"]) == n
         assert "filter_3D" not in read_ply(str(out / f"{name}.ply"))
@@ -171,6 +174,36 @@ def test_write_satellite_scene_matches_the_jax_script(tmp_path):
         assert mt.sum() > 0.2 * mt.size
 
 
+@pytest.mark.parametrize("color_mapped", [False, True], ids=["plain", "color_mapped"])
+def test_create_fused_ply_on_its_device_writes_the_same_bytes(chain, tmp_path, color_mapped):
+    """The checkpoint loads on --device (here the CPU); the files equal those
+    of the export run on a state loaded on the CPU, as the tool did before
+    it took --device.  ``--color_mapped`` bakes a random appearance MLP."""
+    from skyfall_gs_tpu_torch.io.gaussian_ply import save_fused_ply, save_splat
+    from skyfall_gs_tpu_torch.model.appearance import AppearanceConfig
+    from skyfall_gs_tpu_torch.model.gaussians import create_from_points
+    from skyfall_gs_tpu_torch.train.checkpoint import save_checkpoint
+    from skyfall_gs_tpu_torch.train.step import init_train_state
+
+    ckpt = str(chain[0] / "model" / f"chkpnt{IT}.npz")
+    flags = []
+    if color_mapped:
+        rng = np.random.default_rng(3)
+        ckpt, flags = str(tmp_path / "app.npz"), ["--color_mapped"]
+        save_checkpoint(ckpt, init_train_state(create_from_points(
+            rng.normal(size=(200, 3)).astype(np.float32),
+            rng.uniform(size=(200, 3)).astype(np.float32), num_cameras=8,
+            appearance=AppearanceConfig(True, 2, 8), seed=3)), 1)
+    state, _ = render_video.load_state_from_checkpoint(ckpt)
+    assert state.appearance.enabled == color_mapped
+    save_fused_ply(state, str(tmp_path / "ref.ply"), color_mapped=color_mapped)
+    save_splat(state, str(tmp_path / "ref.splat"))
+    for ext in ("ply", "splat"):
+        create_fused_ply.main(["-c", ckpt, "-o", str(tmp_path / f"out.{ext}"),
+                               "--device", "cpu"] + flags)
+        assert (tmp_path / f"out.{ext}").read_bytes() == (tmp_path / f"ref.{ext}").read_bytes()
+
+
 def test_ges_path_matches_jax(tmp_path):
     argv = ["--elevation", "0", "--radius", "250", "--ges", "--alt_tar", "20",
             "--alt_cam", "400", "--num_frame", "4", "--width", "64", "--height", "32"]
@@ -182,12 +215,38 @@ def test_ges_path_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flags, where", [
-    (["--gui_port", "6009"], "ROADMAP Queue 1: the live viewer"),
+    (["--gui_port"], None),
     (["--data_parallel", "2"], "ROADMAP: left out of the port"),
     (["--shard_gaussians", "-1"], "ROADMAP: left out of the port"),
     ([], "ROADMAP: left out of the port"),          # with a multi-host environment
 ], ids=["gui_port", "data_parallel", "shard_gaussians", "multi_host"])
-def test_unported_options_raise(tmp_path, monkeypatch, flags, where):
+def test_unported_options_raise(chain, tmp_path, monkeypatch, flags, where):
+    if flags == ["--gui_port"]:
+        # Ported: --gui_port opens a listening viewer bridge that serves
+        # one frame per iteration.
+        from skyfall_gs_tpu_torch.viz import network_gui
+        from tests.test_torch_viewer import Viewer, connect, identity_request
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        viewer = Viewer(port, [identity_request()] * 2)
+
+        class ConnectedGUI(network_gui.NetworkGUI):
+            def __init__(self, host, port):
+                super().__init__(host, port)
+                connect(self)
+
+        monkeypatch.setattr(network_gui, "NetworkGUI", ConnectedGUI)
+        trainer, state = train_cli.main(["-s", str(chain[0] / "scene"), "-m",
+                                         str(tmp_path / "m"), "--iterations", "2",
+                                         "--gui_port", str(port), "--device", "cpu",
+                                         "--quiet"])
+        viewer.join()
+        assert isinstance(trainer.gui, ConnectedGUI) and state.step == 2
+        assert [len(f) for f in viewer.frames] == [8 * 8 * 3] * 2
+        assert viewer.verify == [str(chain[0] / "scene")] * 2
+        return
     if not flags:
         monkeypatch.setenv("SKYFALL_NUM_PROCESSES", "2")
     with pytest.raises(NotImplementedError, match=f"not ported \\({where}\\)"):
@@ -202,6 +261,8 @@ def test_device_and_required_flags(tmp_path, monkeypatch):
         train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         render_video.main(["--ply", "x.ply", "--camera_path", "p.json", "--out", "o.mp4"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_fused_ply.main(["-c", "x.npz", "-o", "o.ply"])
     with pytest.raises(SystemExit):
         train_cli.main(["-m", str(tmp_path / "m"), "--device", "cpu"])
     with pytest.raises(SystemExit):

@@ -260,7 +260,17 @@ def test_unported_options_raise(scenes, tmp_path, case):
     if case == "mesh":
         kw["mesh"] = object()
     elif case == "gui":
-        kw["gui"] = object()
+        # Ported: the Trainer takes a listening NetworkGUI.
+        from skyfall_gs_tpu_torch.viz.network_gui import NetworkGUI
+        from tests.test_torch_viewer import Viewer, connect, port_of
+
+        gui = NetworkGUI("127.0.0.1", 0)
+        tr = TTrainer(model_cfg(tmp_path), opt_cfg(), PipelineConfig(), tscene, gui=gui)
+        viewer = Viewer(port_of(gui), [], replies=False)
+        connect(tr.gui)
+        viewer.join()
+        gui.drop()
+        return
     elif case == "lpips":
         # Ported: the step's scorer comes from local LPIPS weights, and
         # without them lpips_from_local_packages raises.
