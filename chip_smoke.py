@@ -92,12 +92,28 @@ Phases, one line each:
      target altitude of 25 m, within the final bracket of it; (10d) launcher
      jobs train two copies of the scene (200 iterations, one slot each) and
      fail on a missing scene, then ``cli.render_videos`` renders two 512 px
-     orbits from each checkpoint.
+     orbits from each checkpoint;
+ 11. view-parallel training (``parallel.mesh.launch`` spawns the ranks; each
+     runs a rank program of this file and returns its kernel launches):
+     (11a) the bench workload through ``make_parallel_train_step`` on NCCL
+     at world size min(device_count, 2): one step held against the B
+     views' gradients averaged in one process (loss 1e-4 relative,
+     gradients and statistics 1e-3 norm-relative), 20 steps timed, the
+     ranks' state digests equal, the step's two collectives timed alone and
+     their bytes; (11b) the same at B = 2 on two gloo ranks sharing
+     cuda:0; (11c) on phase 6's scene, a Trainer on that gloo mesh (200
+     iterations from the points, pseudo views, a densify pass after the
+     last step: L1 falling, zero overflow, digests equal), one IDU episode
+     from phase 6's checkpoint (2 views at 1024^2, 100 iterations; rank 0
+     alone writes its files) and ``cli.train --data_parallel 1`` (NCCL, 300
+     iterations, every file written); (11d) the tile-parallel 1920x1080
+     frame against the direct render (JAX's band bounds 6e-2 max, 5e-3
+     mean) and ``make_parallel_render`` of 2 cameras against each alone.
 Each measurement line carries the card's name and power limit.  The last
 three lines before the final one are a summary of the kernels at the bench
 shape (time, bound, share of it, plain version, launches, ptxas), their
-JSON record (launches counted over phases 3, 5, 6, 7, 8a, 8d, 9 and 10a-10c;
-10d's jobs run in subprocesses and are not counted) and the
+JSON record (launches counted over phases 3, 5, 6, 7, 8a, 8d, 9, 10a-10c
+and every rank of 11; 10d's jobs run in subprocesses and are not counted) and the
 card's name and power limit; the final line is the JSON result.  Any failure
 raises, and the script exits non-zero without a result.  There is no CPU path.
 """
@@ -254,6 +270,32 @@ GES_ITERS = 8
 LAUNCH_ITERS = 200
 VIDEO_SIZE = 512
 VIDEO_FRAMES = 24
+
+# Phase 11: view-parallel training.  11a the bench workload through
+# make_parallel_train_step on NCCL at world size min(device_count, 2); 11b
+# the same at B = 2 on two gloo ranks sharing cuda:0; 11c the entry points
+# on phase 6's scene; 11d renders at 1080p.  A rank's collectives time out
+# after P_TIMEOUT_S and a launch after P_JOIN_S.
+P_TIMEOUT_S = 120.0
+P_JOIN_S = 420.0
+P_LOSS_REL = 1e-4             # the card-vs-CPU gates of phase 4
+P_GRAD_REL = 1e-3
+P_STEPS = 20
+P_CLI_ITERS = 300
+# 11c: a Trainer on 2 gloo ranks from the scene's points, pseudo views from
+# iteration 20; its densify pass comes after the last step, so the L1 gate
+# reads 200 steps of training and not a prune's jump (a 64 px rehearsal
+# of the same settings lost a third of its splats to the world-size prune
+# at 150 and its L1 doubled, on one device as on two ranks).
+P_S1_ITERS = 200
+P_S1_OPT = dict(densify_from_iter=150, densification_interval=50,
+                densify_until_iter=P_S1_ITERS + 1, lambda_pseudo_depth=0.5,
+                sample_pseudo_interval=10, start_sample_pseudo=20, end_sample_pseudo=P_S1_ITERS)
+# then one IDU episode from phase 6's checkpoint (2 orbit views at 1024^2)
+# with densify passes 25 and 50 iterations in
+P_IDU_OPT = dict(CHAIN, idu_refine=False, densification_interval=25)
+P_VIEW = dict(elevation=45.0, radius=300.0, fov_deg=60.0, width=1920, height=1080)
+P_BAND_MAX, P_BAND_MEAN = 6e-2, 5e-3   # tests/test_train.py:290-311's band bounds
 
 
 def log(phase, msg: str) -> None:
@@ -1916,6 +1958,388 @@ def tools_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# Phase 11: view-parallel training (rank programs run through parallel.mesh.launch)
+# ----------------------------------------------------------------------------
+
+def parallel_step_rank(mesh, n_steps: int) -> dict:
+    """11a / 11b in one rank: the bench workload's state on every rank;
+    rank 0 computes the B views' gradients alone, averaged, with their
+    statistics summed (maxima taken), and holds one view-parallel step
+    against them; then ``n_steps`` steps timed (CUDA events), the ranks'
+    state digests, and the step's two collectives timed alone."""
+    import torch
+
+    from skyfall_gs_tpu_torch.config import OptimizationConfig
+    from skyfall_gs_tpu_torch.model.densify import densification_terms
+    from skyfall_gs_tpu_torch.model.gaussians import flat_fields
+    from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
+    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+    from skyfall_gs_tpu_torch.parallel.sharding import (
+        assert_replicated, broadcast_state_, make_parallel_train_step)
+    from skyfall_gs_tpu_torch.train.step import _build_grads_fn, init_train_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, b, r = mesh.device, mesh.size, mesh.rank
+    rng = np.random.default_rng(0)
+    state, cams = bench_scene(rng, dev, N_GAUSSIANS, IMG)
+    gt = torch.from_numpy(rng.uniform(0, 1, (IMG, IMG, 3)).astype(np.float32)).to(dev)
+    mask = torch.ones((IMG, IMG), device=dev)
+    gt_depth = torch.from_numpy(rng.uniform(1, 500, (IMG, IMG)).astype(np.float32)).to(dev)
+    bg = torch.zeros(3, device=dev)
+    ts = broadcast_state_(init_train_state(state), mesh)
+    opt_cfg = OptimizationConfig()
+    cap = mesh.max_int(measure_bin_capacity(ts.model, cams, kernel_size=0.1))
+    kw = dict(use_depth=True, bin_capacity=cap)
+    out = {"size": b, "backend": mesh.backend, "capacity": cap}
+    if r == 0:
+        grads_fn = _build_grads_fn(opt_cfg, **kw)
+        views = [grads_fn(ts.model, cams[v], gt, mask, gt_depth, bg, 0.1) for v in range(b)]
+        ref_loss = float(sum(v[0] for v in views)) / b
+        ref_grads = {k: sum(dict(flat_fields(v[2]))[k] for v in views) / b
+                     for k, _ in flat_fields(views[0][2])}
+        terms = [densification_terms(ts.model.aux, *v[3], v[1]["radii"], IMG, IMG)
+                 for v in views]
+        ref_stats = {"grad_accum": sum(t[0] for t in terms),
+                     "grad_accum_abs": sum(t[1] for t in terms),
+                     "denom": sum(t[2] for t in terms),
+                     "grad_accum_abs_max": torch.stack([t[1] for t in terms]).amax(0),
+                     "max_radii2d": torch.stack([t[3] for t in terms]).amax(0)}
+        del views
+    step = make_parallel_train_step(mesh, opt_cfg, **kw)
+    mesh.barrier()
+    reset_launches(rt)
+    mesh.traffic.update(collectives=0, bytes=0)
+    ts, m = step(ts, cams[r], gt, mask, gt_depth, bg, 1e-4, 0.1)
+    out["bytes_per_step"] = mesh.traffic["bytes"]
+    out["collectives_per_step"] = mesh.traffic["collectives"]
+    if r == 0:
+        # Adam's first moment after one step is (1 - b1) times the mean gradient.
+        mu = dict(flat_fields(ts.opt.mu))
+        out["loss"], out["ref_loss"] = float(m.loss), ref_loss
+        out["loss_rel"] = abs(float(m.loss) - ref_loss) / abs(ref_loss)
+        out["grad_rel"] = {k: rel_norm(mu[k] / 0.1, g) for k, g in ref_grads.items()}
+        aux = ts.model.aux
+        out["stat_rel"] = {k: rel_norm(getattr(aux, k), v) for k, v in ref_stats.items()}
+        out["overflow0"] = int(m.overflow)
+        del ref_grads, ref_stats
+    warm = WARMUP_STEPS
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+    losses, overflow = [], []
+    for i in range(warm + n_steps):
+        if i >= warm:
+            events[i - warm].record()
+        ts, m = step(ts, cams[(i * b + r) % len(cams)], gt, mask, gt_depth, bg, 1e-4, 0.1)
+        losses.append(m.loss)
+        overflow.append(m.overflow)
+    events[n_steps].record()
+    torch.cuda.synchronize()
+    out["step_ms"] = [events[i].elapsed_time(events[i + 1]) for i in range(n_steps)]
+    out["losses"] = torch.stack(losses).tolist()
+    out["max_overflow"] = int(torch.stack(overflow).max())
+    out["finite"] = all(bool(torch.isfinite(v).all()) for _, v in flat_fields(ts.model.params))
+    out["digest"] = assert_replicated(ts, mesh)
+    out["launches"] = launches_of(rt)
+    # The step's two collectives alone: one SUM of the gradients, the stat
+    # terms and the metrics, one MAX of the AbsGS norms and the radii.
+    c = ts.model.params.capacity
+    n_sum = sum(v.numel() for _, v in flat_fields(ts.model.params)) + 3 * c + 5
+    sum_buf = torch.zeros(n_sum, device=dev)
+    max_buf = torch.zeros(2 * c, device=dev)
+
+    def collectives():
+        mesh.all_reduce_(sum_buf)
+        mesh.all_reduce_(max_buf, "max")
+
+    for _ in range(3):
+        collectives()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(P_STEPS + 1)]
+    for i in range(P_STEPS):
+        ev[i].record()
+        collectives()
+    ev[P_STEPS].record()
+    torch.cuda.synchronize()
+    out["collective_ms"] = [ev[i].elapsed_time(ev[i + 1]) for i in range(P_STEPS)]
+    out["collective_bytes"] = 4 * (n_sum + 2 * c)
+    return out
+
+
+class _RankWrites:
+    """Counts, in one rank, the calls that write an episode's files."""
+
+    def __init__(self):
+        from skyfall_gs_tpu_torch.train import idu, loop
+
+        self.calls = []
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (idu, "_save_frames"), (idu, "save_checkpoint"), (loop.Trainer, "save_ply"))]
+        for mod, name, fn in self._saved:
+            def wrapped(*a, _fn=fn, _name=name, **k):
+                self.calls.append(_name)
+                return _fn(*a, **k)
+            setattr(mod, name, wrapped)
+
+    def restore(self):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def parallel_trainer_rank(mesh, scene_dir: str, ckpt: str, out_dir: str) -> dict:
+    """11c in one rank: a Trainer on the view mesh for P_S1_ITERS
+    iterations from the scene's points, densify and pseudo views on, then
+    one IDU episode from phase 6's checkpoint."""
+    import torch
+
+    from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from skyfall_gs_tpu_torch.io.scene import load_scene
+    from skyfall_gs_tpu_torch.model.gaussians import flat_fields
+    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+    from skyfall_gs_tpu_torch.parallel.sharding import assert_replicated
+    from skyfall_gs_tpu_torch.priors import IdentityRefiner, RenderDepthPredictor
+    from skyfall_gs_tpu_torch.train.idu import IDUOrchestrator
+    from skyfall_gs_tpu_torch.train.loop import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scene = load_scene(scene_dir, eval_split=True, device=mesh.device)
+    reset_launches(rt)
+    out = {}
+    t = Trainer(ModelConfig(model_path=str(Path(out_dir) / "stage1")),
+                OptimizationConfig(iterations=P_S1_ITERS, **P_S1_OPT), PipelineConfig(), scene,
+                depth_predictor=RenderDepthPredictor(), rng_seed=0, mesh=mesh)
+    losses = []
+    if t.logger:
+        log_step = t.logger.log_step
+
+        def spy(it, metrics, elapsed):
+            losses.append(metrics.l1)
+            log_step(it, metrics, elapsed)
+        t.logger.log_step = spy
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = t.train(t.init_state(), iterations=P_S1_ITERS)
+    torch.cuda.synchronize()
+    out["s1_wall"] = time.perf_counter() - t0
+    out["s1_l1"] = torch.stack(losses).tolist() if losses else []
+    out["s1_overflow"] = int(t.max_overflow)
+    out["s1_finite"] = all(bool(torch.isfinite(v).all())
+                           for _, v in flat_fields(state.model.params))
+    out["s1_splats"] = int(state.model.num_alive)
+    out["s1_digest"] = assert_replicated(state, mesh)
+    del t, state
+    torch.cuda.empty_cache()
+
+    t = Trainer(ModelConfig(model_path=str(Path(out_dir) / "idu")),
+                OptimizationConfig(**P_IDU_OPT), PipelineConfig(), scene, rng_seed=0, mesh=mesh)
+    writes = _RankWrites()
+    try:
+        state = t.init_state(ckpt)
+        orch = IDUOrchestrator(t, IdentityRefiner(), RenderDepthPredictor())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = orch.run(state, t.start_iteration, episodes=1)
+        torch.cuda.synchronize()
+        out["idu_wall"] = time.perf_counter() - t0
+    finally:
+        writes.restore()
+    out["idu_writes"] = writes.calls
+    out["idu_episode"] = orch.episodes[0]
+    out["idu_overflow"] = max(orch.max_overflow, int(t.max_overflow))
+    out["idu_end"] = t.start_iteration + P_IDU_OPT["idu_episode_iterations"]
+    out["idu_finite"] = all(bool(torch.isfinite(v).all())
+                            for _, v in flat_fields(state.model.params))
+    out["idu_digest"] = assert_replicated(state, mesh)
+    out["launches"] = launches_of(rt)
+    return out
+
+
+def parallel_render_rank(mesh, ckpt: str) -> dict:
+    """11d in one rank: the tile-parallel 1080p frame (a band per rank)
+    against the direct render, and the parallel render of B cameras against
+    each rendered alone."""
+    import torch
+
+    from skyfall_gs_tpu_torch.cli.render_video import load_state_from_checkpoint
+    from skyfall_gs_tpu_torch.core.camera import band_camera, orbit_cameras
+    from skyfall_gs_tpu_torch.model.render import measure_bin_capacity, render
+    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+    from skyfall_gs_tpu_torch.parallel.sharding import (
+        make_parallel_render, make_tile_parallel_render)
+
+    dev, b, r = mesh.device, mesh.size, mesh.rank
+    model, _ = load_state_from_checkpoint(ckpt, device=dev)
+    v = P_VIEW
+    cams = orbit_cameras([0, 0, 0], v["elevation"], v["radius"], num_cams=b, width=v["width"],
+                         height=v["height"], fov_deg=v["fov_deg"], device=dev)
+    bg = torch.zeros(3, device=dev)
+    reset_launches(rt)
+    band = band_camera(cams[0], r, b)
+    tile_fn = make_tile_parallel_render(mesh, bin_capacity=mesh.max_int(
+        measure_bin_capacity(model, [band], kernel_size=0.1)))
+    full_cap = measure_bin_capacity(model, [cams[0]], kernel_size=0.1)
+
+    def direct():
+        return render(model, cams[0], bg, testing=True, inference=True, bin_capacity=full_cap)
+
+    with torch.no_grad():
+        tile = tile_fn(model, band, bg)
+        full = direct()
+        diff = (tile - full.color).abs()
+        out = {"tile_max": float(diff.max()), "tile_mean": float(diff.mean()),
+               "full_overflow": int(full.overflow), "shape": list(tile.shape)}
+        tile_fn(model, band, bg)
+        out["tile_ms"] = cuda_ms(lambda: tile_fn(model, band, bg), 10, torch)
+        direct()
+        out["direct_ms"] = cuda_ms(direct, 10, torch)
+        cap = mesh.max_int(measure_bin_capacity(model, cams, kernel_size=0.1))
+        colors, depths = make_parallel_render(mesh, bin_capacity=cap)(model, cams[r], bg)
+        alone = [render(model, c, bg, testing=True, bin_capacity=cap) for c in cams]
+        out["parallel_max"] = max(
+            float((colors - torch.stack([a.color for a in alone])).abs().max()),
+            float((depths - torch.stack([a.depth for a in alone])).abs().max()))
+        out["parallel_overflow"] = max(int(a.overflow) for a in alone)
+    out["launches"] = launches_of(rt)
+    return out
+
+
+def gloo_ranks(mesh, scene_dir: str, ckpt: str, out_dir: str) -> dict:
+    """11b, the 11c Trainer and 11d, on the gloo ranks sharing one card."""
+    return {"step": parallel_step_rank(mesh, P_STEPS),
+            "trainer": parallel_trainer_rank(mesh, scene_dir, ckpt, out_dir),
+            "render": parallel_render_rank(mesh, ckpt)}
+
+
+def add_launches(total: dict, results) -> None:
+    for res in results:
+        for k, n in res.items():
+            total[k] += n
+
+
+def parallel_phase(torch, rt, dev, card: str, tmp: Path, sat: dict, phase3_ms: float) -> dict:
+    """Phase 11; returns the kernels' launch counts of every rank."""
+    from skyfall_gs_tpu_torch.cli import train as train_cli
+    from skyfall_gs_tpu_torch.parallel.mesh import launch
+
+    t_phase = time.perf_counter()
+    launches = {"fwd": 0, "bwd": 0}
+    n_gpus = torch.cuda.device_count()
+    ckpt = str(sat["median"]["model"] / f"chkpnt{TRAIN_ITERS}.npz")
+
+    def step_lines(tag, res, route):
+        r0 = res[0]
+        step_ms, coll_ms = float(np.median(r0["step_ms"])), float(np.median(r0["collective_ms"]))
+        digests = {x["digest"] for x in res}
+        log(tag, f"{route} on [{card}]: B = {r0['size']} views per step at {IMG}px / "
+                 f"{N_GAUSSIANS} splats (capacity {int(N_GAUSSIANS * 1.25)}, bin capacity "
+                 f"{r0['capacity']}); one step against the B views' gradients averaged in one "
+                 f"process: loss {r0['loss']:.6f} vs {r0['ref_loss']:.6f} (rel "
+                 f"{r0['loss_rel']:.2e}, tol {P_LOSS_REL}), worst gradient rel norm "
+                 f"{max(r0['grad_rel'].values()):.2e} ({max(r0['grad_rel'], key=r0['grad_rel'].get)}"
+                 f", tol {P_GRAD_REL}), worst stat rel norm {max(r0['stat_rel'].values()):.2e} "
+                 f"({max(r0['stat_rel'], key=r0['stat_rel'].get)}); {P_STEPS} steps: median "
+                 f"{step_ms:.3f} ms per step ({1000.0 * r0['size'] / step_ms:.1f} views/s; "
+                 f"phase 3's single-device step {phase3_ms:.3f} ms), loss "
+                 f"{r0['losses'][0]:.5f} -> {r0['losses'][-1]:.5f}, max overflow "
+                 f"{r0['max_overflow']}; collectives {r0['collectives_per_step']} per step, "
+                 f"{r0['bytes_per_step'] / 1e6:.3f} MB per step, alone median {coll_ms:.3f} ms "
+                 f"({r0['collective_bytes'] / coll_ms / 1e6:.2f} GB/s of buffer); state digests "
+                 f"equal on {len(res)} ranks: {len(digests) == 1}")
+        assert r0["loss_rel"] <= P_LOSS_REL, r0["loss_rel"]
+        assert max(r0["grad_rel"].values()) <= P_GRAD_REL, r0["grad_rel"]
+        assert max(r0["stat_rel"].values()) <= P_GRAD_REL, r0["stat_rel"]
+        assert r0["overflow0"] == 0 and all(x["max_overflow"] == 0 for x in res)
+        assert all(x["finite"] and np.isfinite(x["losses"]).all() for x in res)
+        assert len(digests) == 1, digests
+        assert r0["collectives_per_step"] == 2, r0["collectives_per_step"]
+        for x in res:
+            assert x["launches"]["fwd"] > 0 and x["launches"]["bwd"] > 0, x["launches"]
+
+    # -- 11a: NCCL, one rank per GPU ------------------------------------------
+    world = min(n_gpus, 2)
+    t0 = time.perf_counter()
+    res = launch(parallel_step_rank, world, (P_STEPS,), device=DEVICE, timeout_s=P_TIMEOUT_S,
+                 join_timeout_s=P_JOIN_S)
+    step_lines("11a", res, f"NCCL over {world} of {n_gpus} visible GPUs")
+    add_launches(launches, [x["launches"] for x in res])
+    log("11a", f"{time.perf_counter() - t0:.1f} s with the ranks' start; NCCL across two "
+               f"cards {'measured' if world == 2 else 'not measured (one GPU visible)'}")
+
+    # -- 11b-11d: two gloo ranks sharing cuda:0 ---------------------------------
+    t0 = time.perf_counter()
+    res = launch(gloo_ranks, 2, (str(sat["scene"]), ckpt, str(tmp / "p11")),
+                 device=f"{DEVICE}:0", backend="gloo", timeout_s=P_TIMEOUT_S,
+                 join_timeout_s=P_JOIN_S)
+    step_lines("11b", [x["step"] for x in res], "2 gloo ranks sharing cuda:0")
+    tr = [x["trainer"] for x in res]
+    t0r = tr[0]
+    first, last = np.mean(t0r["s1_l1"][:20]), np.mean(t0r["s1_l1"][-20:])
+    ep = t0r["idu_episode"]
+    idu_dir = tmp / "p11" / "idu" / "idu" / ep["tag"]
+    frames = sorted((idu_dir / "render").iterdir())
+    log("11c", f"Trainer(mesh=make_mesh(2, backend='gloo', device='cuda:0')) on [{card}]: "
+               f"{P_S1_ITERS} Stage-1 iterations from the scene's points ({P_S1_OPT}) in "
+               f"{t0r['s1_wall']:.2f} s ({P_S1_ITERS / t0r['s1_wall']:.1f} it/s, "
+               f"{2 * P_S1_ITERS / t0r['s1_wall']:.1f} views/s), L1 first 20 {first:.5f} -> "
+               f"last 20 {last:.5f}, splats {t0r['s1_splats']}, max overflow "
+               f"{t0r['s1_overflow']}; one IDU episode from {Path(ckpt).name} ({ep['views']} "
+               f"views at {ep['size']}^2, {ep['iterations']} iterations) in "
+               f"{t0r['idu_wall']:.2f} s (views {ep['views_s']:.2f} s, training "
+               f"{ep['train_s']:.2f} s), overflow {t0r['idu_overflow']}; digests equal after "
+               f"each: {len({x['s1_digest'] for x in tr}) == 1 and len({x['idu_digest'] for x in tr}) == 1}; "
+               f"writes rank 0 {sorted(t0r['idu_writes'])}, rank 1 {tr[1]['idu_writes']}")
+    assert all(np.isfinite(x["s1_l1"]).all() for x in tr) and last < first, (first, last)
+    assert all(x["s1_overflow"] == 0 and x["idu_overflow"] == 0 for x in tr)
+    assert all(x["s1_finite"] and x["idu_finite"] for x in tr)
+    assert len({x["s1_digest"] for x in tr}) == 1 and len({x["idu_digest"] for x in tr}) == 1
+    assert sorted(t0r["idu_writes"]) == ["_save_frames", "save_checkpoint", "save_ply"]
+    assert tr[1]["idu_writes"] == [] and tr[1]["s1_l1"] == []
+    assert len(frames) == ep["views"] == 2, frames
+    assert (tmp / "p11" / "idu" / f"chkpnt{t0r['idu_end']}.npz").is_file()
+    rr = [x["render"] for x in res]
+    log("11d", f"1080p renders on 2 gloo ranks sharing [{card}]: tile-parallel frame "
+               f"{rr[0]['shape']} vs the direct render max abs {rr[0]['tile_max']:.3e} (bound "
+               f"{P_BAND_MAX}), mean {rr[0]['tile_mean']:.3e} (bound {P_BAND_MEAN}); "
+               f"{rr[0]['tile_ms']:.3f} ms per tile-parallel frame vs {rr[0]['direct_ms']:.3f} ms "
+               f"direct (CUDA events, 10 frames); make_parallel_render of 2 cameras vs each "
+               f"alone max abs {max(x['parallel_max'] for x in rr):.3e}")
+    assert rr[0]["shape"] == [P_VIEW["height"], P_VIEW["width"], 3]
+    assert rr[0]["tile_max"] <= P_BAND_MAX and rr[0]["tile_mean"] <= P_BAND_MEAN
+    assert max(x["parallel_max"] for x in rr) <= 1e-6
+    assert all(x["full_overflow"] == 0 and x["parallel_overflow"] == 0 for x in rr)
+    add_launches(launches, [x[k]["launches"] for x in res for k in ("step", "trainer", "render")])
+    log(11, f"11b-11d {time.perf_counter() - t0:.1f} s with the ranks' start")
+
+    # -- 11c: cli.train --data_parallel 1 (NCCL) ---------------------------------
+    t0 = time.perf_counter()
+    model = tmp / "p11_cli"
+    out = train_cli.main(["-s", str(sat["scene"]), "-m", str(model), "--eval", "--iterations",
+                          str(P_CLI_ITERS), "--test_iterations", str(P_CLI_ITERS),
+                          "--save_iterations", str(P_CLI_ITERS), "--checkpoint_iterations",
+                          str(P_CLI_ITERS), "--data_parallel", "1", "--device", DEVICE,
+                          "--quiet"])
+    wall = time.perf_counter() - t0
+    with open(model / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if r["type"] == "step"]
+    evals = [r for r in records if r["type"] == "eval" and r["split"] == "test"]
+    n_finite = finite_steps(model, 0)
+    written = [p for p in ("cfg_args.json", "input.ply", "cameras.json",
+                           f"chkpnt{P_CLI_ITERS}.npz", "metrics.jsonl",
+                           f"point_cloud/iteration_{P_CLI_ITERS}/point_cloud.ply")
+               if (model / p).is_file()]
+    log("11c", f"cli.train --data_parallel 1 --device cuda (NCCL) on [{card}]: {P_CLI_ITERS} "
+               f"iterations in {wall:.2f} s with the rank's start, {n_finite} finite logged "
+               f"steps, max logged overflow {max(r['overflow'] for r in steps)}, test PSNR "
+               f"{evals[-1]['psnr']:.3f} dB, one eval record {len(evals) == 1}; wrote "
+               f"{len(written)} of 6 files")
+    assert out is None and len(written) == 6 and len(evals) == 1
+    assert max(r["overflow"] for r in steps) == 0
+    log(11, f"launches fwd {launches['fwd']} bwd {launches['bwd']} (every rank); phase 11 "
+            f"took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # Main
 # ----------------------------------------------------------------------------
 
@@ -2126,6 +2550,11 @@ def main() -> int:
 
         # -- phase 10: the viewer, align_ges, the launcher and render_videos ------
         for k, n in tools_phase(torch, rt, dev, card, Path(tmp), sat).items():
+            launches[k] += n
+        torch.cuda.empty_cache()
+
+        # -- phase 11: view-parallel training ----------------------------------------
+        for k, n in parallel_phase(torch, rt, dev, card, Path(tmp), sat, med).items():
             launches[k] += n
 
     # No single PyTorch call composites depth-sorted splats: library_ms null.

@@ -30,16 +30,30 @@ photometric loss; it needs local LPIPS weights (torchvision's cache and the
 (``viz.network_gui.NetworkGUI``) on that port; the Trainer serves the
 viewer before every Stage-1 iteration.  0, the default, opens none.
 
-Not ported, each raising ``NotImplementedError`` that names where the
-ROADMAP places it: ``--data_parallel``, ``--shard_gaussians`` and a
-multi-host ``SKYFALL_*`` environment (left out of the port: multi-device
-TPU machinery).
+``--data_parallel N`` trains view-parallel over N ranks
+(``parallel.mesh.launch``, one spawned process per rank; -1: every visible
+GPU): NCCL on ``--device cuda`` (rank r on ``cuda:r``; more ranks than
+visible GPUs raise before anything starts) and gloo on ``--device cpu``.
+Each iteration trains one view per rank (``Trainer(mesh=...)``); rank 0
+alone writes ``cfg_args.json``, the scene's ``input.ply`` and
+``cameras.json``, logs, reports, checkpoints and PLYs.  A multi-host pod
+sets ``SKYFALL_COORDINATOR`` / ``SKYFALL_NUM_PROCESSES`` /
+``SKYFALL_PROCESS_ID`` on each host (``parallel.mesh.multihost_slot_envs``
+writes them for ``parallel.launcher``); each host then starts its share of
+the ranks (``--data_parallel N`` counts the whole pod, -1 every GPU of each
+host, 0 one rank per host) and joins the pod at the coordinator.  Half a
+configuration raises ``RuntimeError``.  With ranks, ``main`` returns None
+once every rank has finished; a rank that fails fails the run.
+
+Not ported, raising ``NotImplementedError`` that names where the ROADMAP
+places it: ``--shard_gaussians`` (left out of the port: gaussian-sharded
+training).
 """
 
 from __future__ import annotations
 
 import argparse
-import os
+import sys
 
 import torch
 
@@ -51,6 +65,7 @@ from skyfall_gs_tpu_torch.config import (
     extract_config,
     save_config,
 )
+from skyfall_gs_tpu_torch.parallel.mesh import launch, pod_config
 from skyfall_gs_tpu_torch.utils.general import seed_everything
 
 
@@ -97,36 +112,70 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _unported(pipe_cfg: PipelineConfig) -> None:
-    multi_host = bool(os.environ.get("SKYFALL_COORDINATOR")) or \
-        int(os.environ.get("SKYFALL_NUM_PROCESSES", "1")) > 1
-    for hit, what in ((pipe_cfg.data_parallel, "--data_parallel"),
-                      (pipe_cfg.shard_gaussians, "--shard_gaussians"),
-                      (multi_host, "multi-host training (SKYFALL_* environment)")):
-        if hit:
-            raise NotImplementedError(f"{what} is not ported (ROADMAP: left out of the port)")
+def local_ranks(data_parallel: int, device: torch.device, pod) -> int:
+    """How many ranks this process starts: ``--data_parallel`` ranks (on a
+    pod, its share of them), every visible GPU for -1, one per host on a
+    pod without the flag."""
+    if data_parallel < 0:
+        if device.type != "cuda":
+            raise SystemExit("--data_parallel -1 means every visible GPU; give a count "
+                             f"with --device {device}")
+        return torch.cuda.device_count()
+    if pod is None or data_parallel == 0:
+        return max(data_parallel, 1)
+    if data_parallel % pod[1]:
+        raise SystemExit(f"--data_parallel {data_parallel} does not divide over the "
+                         f"pod's {pod[1]} processes")
+    return data_parallel // pod[1]
 
 
 def main(argv=None):
     """Train; returns ``(trainer, final train state)``, and with
-    ``--iterative_datasets_update`` ``(orchestrator, final train state)``."""
+    ``--iterative_datasets_update`` ``(orchestrator, final train state)``.
+    With ranks (``--data_parallel`` or a pod) it returns None once they
+    have all finished."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser()
     args = parser.parse_args(argv)
     model_cfg = extract_config(args, ModelConfig)
     pipe_cfg = extract_config(args, PipelineConfig)
-    opt_cfg = extract_config(args, OptimizationConfig)
 
     if not model_cfg.source_path or not model_cfg.model_path:
         parser.error("--source_path/-s and --model_path/-m are required")
-    _unported(pipe_cfg)
+    if pipe_cfg.data_parallel and pipe_cfg.shard_gaussians:
+        raise SystemExit("--data_parallel and --shard_gaussians are mutually exclusive")
+    if pipe_cfg.shard_gaussians:
+        raise NotImplementedError("--shard_gaussians is not ported "
+                                  "(ROADMAP: left out of the port)")
     if args.iterative_datasets_update and not args.start_checkpoint:
         parser.error("--start_checkpoint is required for IDU")
+    pod = pod_config()
     device = resolve_device(args.device)
+    if pipe_cfg.data_parallel or pod is not None:
+        n = local_ranks(pipe_cfg.data_parallel, device, pod)
+        print(f"view-parallel training: {n} local ranks on {device.type}"
+              + (f", process {pod[2]} of a {pod[1]}-process pod" if pod else ""), flush=True)
+        launch(_rank_main, n, (argv,), device=device.type, pod=pod)
+        return None
+    return _train(args, device)
+
+
+def _rank_main(mesh, argv: list) -> None:
+    """One rank of a view-parallel run (``launch``'s target)."""
+    _train(build_parser().parse_args(argv), mesh.device, mesh)
+
+
+def _train(args, device: torch.device, mesh=None):
+    model_cfg = extract_config(args, ModelConfig)
+    pipe_cfg = extract_config(args, PipelineConfig)
+    opt_cfg = extract_config(args, OptimizationConfig)
+    main_rank = mesh is None or mesh.is_main
 
     seed_everything(args.seed)
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
-    save_config(model_cfg.model_path, model_cfg, pipe_cfg, opt_cfg)
+    if main_rank:
+        save_config(model_cfg.model_path, model_cfg, pipe_cfg, opt_cfg)
 
     from skyfall_gs_tpu_torch.io.scene import load_scene
     from skyfall_gs_tpu_torch.priors import get_depth_predictor, get_refiner
@@ -138,24 +187,25 @@ def main(argv=None):
         eval_split=model_cfg.eval,
         white_background=model_cfg.white_background,
         load_allres=model_cfg.load_allres,
-        model_path=model_cfg.model_path,
+        model_path=model_cfg.model_path if main_rank else None,
         seed=args.seed,
         device=device,
     )
-    print(f"Loaded {scene.scene_type} scene: {scene.num_train} train / "
-          f"{len(scene.test_views)} test views, "
-          f"{len(scene.points)} points, extent {scene.cameras_extent:.1f}")
+    if main_rank:
+        print(f"Loaded {scene.scene_type} scene: {scene.num_train} train / "
+              f"{len(scene.test_views)} test views, "
+              f"{len(scene.points)} points, extent {scene.cameras_extent:.1f}")
 
     depth_pred = None
     if opt_cfg.lambda_pseudo_depth > 0:
         depth_pred = get_depth_predictor(args.depth_model)
     gui = None
-    if args.gui_port:
+    if args.gui_port and main_rank:
         from skyfall_gs_tpu_torch.viz.network_gui import NetworkGUI
 
         gui = NetworkGUI(args.gui_ip, args.gui_port)
     trainer = Trainer(model_cfg, opt_cfg, pipe_cfg, scene, depth_predictor=depth_pred,
-                      rng_seed=args.seed, gui=gui, profile_dir=args.profile_dir)
+                      rng_seed=args.seed, gui=gui, profile_dir=args.profile_dir, mesh=mesh)
     if args.iterative_datasets_update:
         from skyfall_gs_tpu_torch.train.idu import IDUOrchestrator
 
@@ -166,7 +216,8 @@ def main(argv=None):
             depth_predictor=get_depth_predictor(args.depth_model))
         state = trainer.init_state(args.start_checkpoint)
         state = orch.run(state, trainer.start_iteration, episodes=args.idu_episodes)
-        print("Training complete.")
+        if main_rank:
+            print("Training complete.")
         return orch, state
     state = trainer.init_state(args.start_checkpoint)
     state = trainer.train(
@@ -175,7 +226,8 @@ def main(argv=None):
         save_iterations=tuple(args.save_iterations),
         checkpoint_iterations=tuple(args.checkpoint_iterations),
     )
-    print("Training complete.")
+    if main_rank:
+        print("Training complete.")
     return trainer, state
 
 

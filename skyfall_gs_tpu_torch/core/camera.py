@@ -106,6 +106,32 @@ def camera_from_c2w(
                        **kwargs)
 
 
+def band_camera(camera: Camera, band: int, num_bands: int) -> Camera:
+    """An exact sub-camera for horizontal image band ``band`` of
+    ``num_bands``: it renders rows [k*Hb, (k+1)*Hb) of the full image
+    (the same world rays).  Focal lengths stay, the vertical FoV shrinks
+    and the principal point shifts so that pixel (x, y) maps to global
+    (x, y + k*Hb).  The height must divide into ``num_bands`` bands."""
+    h = camera.height
+    if h % num_bands != 0:
+        raise ValueError(f"height {h} not divisible by {num_bands} bands")
+    hb = h // num_bands
+    dev = camera.world_view.device
+    cy_new = ((float(camera.cy) + 1.0) * h - 2.0 * band * hb) / hb - 1.0
+    tan_fovy_new = float(camera.tan_fovy) * hb / h
+    fov_x = 2.0 * math.atan(float(camera.tan_fovx))
+    w2c = camera.world_view.cpu().numpy().astype(np.float64)
+    proj = projection_matrix(camera.znear, camera.zfar, fov_x, 2.0 * math.atan(tan_fovy_new),
+                             float(camera.cx), cy_new)
+    return dataclasses.replace(
+        camera,
+        world_view=torch.from_numpy(w2c.astype(np.float32)).to(dev),
+        full_proj=torch.from_numpy((proj @ w2c).astype(np.float32)).to(dev),
+        tan_fovy=torch.tensor(np.float32(tan_fovy_new), device=dev),
+        cy=torch.tensor(np.float32(cy_new), device=dev),
+        height=hb)
+
+
 def look_at_c2w(eye: Sequence[float], target: Sequence[float],
                 up: Sequence[float] = (0.0, 0.0, 1.0)) -> np.ndarray:
     """Camera-to-world matrix looking from ``eye`` at ``target``, built in

@@ -8,6 +8,7 @@ dict of numpy arrays and written from one.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Dict, Mapping, Sequence
 
 import numpy as np
@@ -88,7 +89,11 @@ def write_ply(
     order: Sequence[str] | None = None,
     element: str = "vertex",
 ) -> None:
-    """Write a single-element binary PLY from {property: (N,) array}."""
+    """Write a single-element binary PLY from {property: (N,) array}.
+
+    The file appears whole or not at all (a per-process temporary file,
+    then ``os.replace``): ranks that load one scene at the same time each
+    rewrite its ``points3D.ply`` while the others read it."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     names = list(order) if order is not None else list(properties.keys())
     n = len(next(iter(properties.values())))
@@ -103,10 +108,12 @@ def write_ply(
     for name, arr in cols:
         rec[name] = arr
 
-    with open(path, "wb") as f:
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "wb") as f:
         f.write(b"ply\nformat binary_little_endian 1.0\n")
         f.write(f"element {element} {n}\n".encode())
         for name, arr in cols:
             f.write(f"property {_NP_TO_PLY[np.dtype(arr.dtype.str[1:])]} {name}\n".encode())
         f.write(b"end_header\n")
         f.write(rec.tobytes())
+    os.replace(tmp, path)

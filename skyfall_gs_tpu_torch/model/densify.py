@@ -55,6 +55,46 @@ class DensifyStats(NamedTuple):
 
 
 @torch.no_grad()
+def densification_terms(
+    aux: GaussianAux,
+    mean2d_grad: torch.Tensor,      # (C, 2) d loss / d pixel-space mean
+    mean2d_abs_grad: torch.Tensor,  # (C, 2) AbsGS absolute pixel-space grad
+    radii: torch.Tensor,            # (C,) int32
+    width: int,
+    height: int,
+) -> tuple:
+    """One view's terms of the screen-space gradient statistics, each
+    (C,) float32: the gradient norms of the visible live Gaussians
+    rescaled to NDC units (x W/2, H/2, so the reference's
+    ``densify_grad_threshold`` calibration carries over), the AbsGS norms,
+    the visibility (0 or 1) and the radii (0 where not visible)."""
+    def ndc_norm(g):
+        return torch.sqrt((g[:, 0] * (0.5 * width)) ** 2 + (g[:, 1] * (0.5 * height)) ** 2)
+
+    update = (radii > 0) & aux.alive
+    return (torch.where(update, ndc_norm(mean2d_grad), 0.0),
+            torch.where(update, ndc_norm(mean2d_abs_grad), 0.0),
+            update.to(aux.denom.dtype),
+            torch.where(update, radii.to(torch.float32), 0.0))
+
+
+@torch.no_grad()
+def accumulate_densification_stats(aux: GaussianAux, grad: torch.Tensor,
+                                   grad_abs: torch.Tensor, visible: torch.Tensor,
+                                   radii: torch.Tensor, grad_abs_max=None) -> None:
+    """Add terms of :func:`densification_terms` to ``aux`` IN PLACE: sums
+    into the accumulators and the visibility counts, maxima into
+    ``grad_accum_abs_max`` (from ``grad_abs_max``, default ``grad_abs``)
+    and ``max_radii2d``.  A view-parallel step passes the terms summed,
+    and the maxima taken, over its views."""
+    aux.grad_accum.add_(grad)
+    aux.grad_accum_abs.add_(grad_abs)
+    torch.maximum(aux.grad_accum_abs_max, grad_abs if grad_abs_max is None else grad_abs_max,
+                  out=aux.grad_accum_abs_max)
+    aux.denom.add_(visible)
+    torch.maximum(aux.max_radii2d, radii, out=aux.max_radii2d)
+
+
 def add_densification_stats(
     aux: GaussianAux,
     mean2d_grad: torch.Tensor,      # (C, 2) d loss / d pixel-space mean
@@ -63,22 +103,10 @@ def add_densification_stats(
     width: int,
     height: int,
 ) -> None:
-    """Accumulate screen-space gradient statistics for visible Gaussians,
-    IN PLACE on ``aux``.  Gradients are rescaled to NDC units (x W/2, H/2)
-    so the reference's ``densify_grad_threshold`` calibration carries over.
-    """
-    def ndc_norm(g):
-        return torch.sqrt((g[:, 0] * (0.5 * width)) ** 2 + (g[:, 1] * (0.5 * height)) ** 2)
-
-    update = (radii > 0) & aux.alive
-    g = torch.where(update, ndc_norm(mean2d_grad), 0.0)
-    ga = torch.where(update, ndc_norm(mean2d_abs_grad), 0.0)
-    aux.grad_accum.add_(g)
-    aux.grad_accum_abs.add_(ga)
-    torch.maximum(aux.grad_accum_abs_max, ga, out=aux.grad_accum_abs_max)
-    aux.denom.add_(update.to(aux.denom.dtype))
-    torch.maximum(aux.max_radii2d, torch.where(update, radii.to(torch.float32), 0.0),
-                  out=aux.max_radii2d)
+    """Accumulate one view's screen-space gradient statistics for visible
+    Gaussians, IN PLACE on ``aux``."""
+    accumulate_densification_stats(
+        aux, *densification_terms(aux, mean2d_grad, mean2d_abs_grad, radii, width, height))
 
 
 def _masked_quantile(values: torch.Tensor, mask: torch.Tensor,

@@ -42,9 +42,18 @@ or step.
 With ``use_lpips_loss`` both kinds of step take the Trainer's LPIPS
 scorer (``Trainer._get_step_fn``), as the JAX package's episodes do.
 
-Single device only: the JAX package's view-mesh fused windows and its
-gauss-sharded episodes raise ``NotImplementedError`` (ROADMAP: left out of
-the port) through the Trainer.
+On a Trainer with a view mesh (``Trainer.mesh``) every rank runs the
+episode: each iteration is one B-view step of the picked kind, an IDU view
+row (the pool's pop, then B-1 uniform draws from the IDU set) or an
+original row (``Trainer._pick_step``), and rank r trains column r.  Rank 0
+alone renders, refines, predicts depth for and writes the view set while
+the other ranks wait; then it broadcasts the views, one array at a time.
+The orbit cameras and every host draw are made on every rank from the same
+stream.  Pseudo views are replicated: every rank renders the same camera and
+runs the predictor on its own device.  Reports, the checkpoint and the PLY
+are rank 0's.  The JAX package's scan-fused episode windows are not ported
+(one B-view step per iteration, on the same draws), nor are its
+gauss-sharded episodes (ROADMAP: left out of the port).
 """
 
 from __future__ import annotations
@@ -96,7 +105,7 @@ class IDUOrchestrator:
     def generate_idu_views(self, state: TrainState, targets: Sequence[Sequence[float]],
                            elevation, radius, fov: float, episode_tag: str) -> List[View]:
         t = self.trainer
-        o, cfg = t.opt_cfg, t.model_cfg
+        o = t.opt_cfg
         size = o.idu_render_size
         rng = t.py_rng
         num_train = max(t.scene.num_train, 1)
@@ -123,7 +132,29 @@ class IDUOrchestrator:
         else:
             cams = rings(elevation, radius)
 
-        # Render the orbit set (the fixed test embedding unless random_ap).
+        mesh = t.mesh
+        if mesh is None:
+            refined, depths = self._render_refine_write(state, cams, episode_tag)
+        else:
+            out = mesh.on_main(self._render_refine_write, state, cams, episode_tag)
+            record = mesh.broadcast_object(self.episodes[-1] if mesh.is_main else None)
+            if not mesh.is_main:
+                self.episodes.append(record)
+                self.max_overflow = max(self.max_overflow, record["overflow"])
+            refined = mesh.broadcast_arrays(out[0] if mesh.is_main else None)
+            depths = mesh.broadcast_arrays(out[1] if mesh.is_main else None)
+        return [View(camera=cam, image=np.asarray(img, np.float32), mask=None,
+                     depth=np.asarray(dep, np.float32), image_name=episode_tag)
+                for cam, img, dep in zip(cams, refined, depths)]
+
+    def _render_refine_write(self, state: TrainState, cams: list, episode_tag: str):
+        """The view set's frames and depths for ``cams``: render (the fixed
+        test embedding unless random_ap), refine with ``idu_refine``,
+        predict depth, write them under ``model_path/idu/<tag>/`` and record
+        the episode's orbit set."""
+        t = self.trainer
+        o, cfg = t.opt_cfg, t.model_cfg
+        size = o.idu_render_size
         cap = measure_bin_capacity(state.model, cams, kernel_size=cfg.kernel_size)
         render = make_eval_render(cfg.kernel_size, t.pipe_cfg.rasterizer_backend,
                                   bin_capacity=cap)
@@ -161,9 +192,8 @@ class IDUOrchestrator:
         depths = self.depth_predictor.run(refined)
         np.save(os.path.join(idu_dir, "render_depth.npy"),
                 np.stack(depths).astype(np.float32))
-        return [View(camera=cam, image=np.asarray(img, np.float32), mask=None,
-                     depth=np.asarray(dep, np.float32), image_name=episode_tag)
-                for cam, img, dep in zip(cams, refined, depths)]
+        return ([np.asarray(img, np.float32) for img in refined],
+                [np.asarray(dep, np.float32) for dep in depths])
 
     # ------------------------------------------------------------------
     def train_episode(self, state: TrainState, first_iter: int, targets, elevation,
@@ -205,8 +235,12 @@ class IDUOrchestrator:
             if use_idu:
                 if not idu_indices:
                     idu_indices.extend(range(idu_group.size))
-                return True, idu_group, idu_indices.pop(t.py_rng.randrange(len(idu_indices)))
-            g, i = t._pick_view()
+                i = idu_indices.pop(t.py_rng.randrange(len(idu_indices)))
+                if t.mesh is not None:
+                    i = [i] + [t.py_rng.randrange(idu_group.size)
+                               for _ in range(t.mesh.size - 1)]
+                return True, idu_group, i
+            g, i = t._pick_step()
             return False, g, i
 
         def pseudo_at(j: int) -> bool:
@@ -234,10 +268,10 @@ class IDUOrchestrator:
                                                           frac * (150.0 - 75.0) + 75.0)
                 pcam = pseudo_stack.pop(t.py_rng.randrange(len(pseudo_stack)))
                 pseudo = t._pseudo_inputs(state, pcam, self.depth_predictor, 1.0)
-            cam, image, mask, depth = g.select(i)
+            cam, image, mask, depth = g.select(t._own(i))
             if not t.pipe_cfg.bin_capacity:
-                t.bin_capacity = max(t.bin_capacity, measure_bin_capacity(
-                    state.model, [cam], kernel_size=cfg.kernel_size))
+                t.bin_capacity = max(t.bin_capacity, t._mesh_max(measure_bin_capacity(
+                    state.model, [cam], kernel_size=cfg.kernel_size)))
                 max_capacity = max(max_capacity, t.bin_capacity)
             # IDU views: the depth term, and the photometric one with
             # idu_refine; original views: the photometric term only.
@@ -267,7 +301,8 @@ class IDUOrchestrator:
 
             if t.logger:
                 t.logger.log_step(iteration, metrics, 0.0)
-            if iteration % o.idu_testing_interval == 0 or iteration == end_iter:
+            if t.rank == 0 and (iteration % o.idu_testing_interval == 0
+                                or iteration == end_iter):
                 t._report(state, iteration)
 
         sync()
@@ -276,8 +311,10 @@ class IDUOrchestrator:
         self.max_overflow = max(self.max_overflow, int(t.max_overflow))
         if t.logger:
             t.logger.flush()
-        save_checkpoint(os.path.join(cfg.model_path, f"chkpnt{end_iter}.npz"), state, end_iter)
-        t.save_ply(state, end_iter)
+        if t.rank == 0:
+            save_checkpoint(os.path.join(cfg.model_path, f"chkpnt{end_iter}.npz"), state,
+                            end_iter)
+            t.save_ply(state, end_iter)
         return state
 
     # ------------------------------------------------------------------

@@ -13,6 +13,7 @@ from __future__ import annotations
 import json
 import os
 import time
+import weakref
 
 import numpy as np
 
@@ -33,6 +34,10 @@ class MetricsLogger:
             pass
         else:
             self._tb = SummaryWriter(self.model_path)
+        # Closes the files when the logger is collected, so that a spawned
+        # rank that drops its Trainer stops tensorboardX's writer thread
+        # before the process tears down its queues.
+        self._finalizer = weakref.finalize(self, _release, self._jsonl, self._tb)
         self._ema_loss = 0.0
         self._t_last = time.time()
         self._step_last = 0
@@ -110,6 +115,10 @@ class MetricsLogger:
 
     def close(self) -> None:
         self.flush()
-        self._jsonl.close()
-        if self._tb:
-            self._tb.close()
+        self._finalizer()
+
+
+def _release(jsonl, tb) -> None:
+    jsonl.close()
+    if tb:
+        tb.close()

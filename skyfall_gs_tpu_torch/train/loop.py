@@ -36,10 +36,26 @@ runs of steps into one ``lax.scan`` dispatch to amortize TPU dispatch
 overhead, and fused and unfused JAX training are step-for-step identical,
 so the port runs the unfused loop (a CUDA graph is the GPU's answer to
 launch overhead).
+
+View-parallel training (``mesh``, a ``parallel.mesh.ViewMesh``, with
+``mesh_mode="view"``): each rank runs this Trainer on its own device with
+the same ``rng_seed``, so every rank makes the same host draws.  Each
+iteration is one B-view step (``parallel.sharding.make_parallel_train_step``,
+B = the mesh size): the lead view is picked exactly as the single-device
+stream picks it, the other B-1 uniformly from the lead's group, and rank r
+trains column r.  The state is replicated: the ranks start from rank 0's
+state, the combined gradients and statistics are the same bits on every
+rank, densify's split draws come from a generator seeded alike on every
+rank, and each measured binning capacity is the ranks' maximum.  Ray jitter
+comes from a per-rank generator (rank 0's is seeded as the single-device
+Trainer's, the counterpart of JAX's ``fold_in(key, axis_index)``).  Logs,
+reports, PLYs and checkpoints are written by rank 0 alone; a viewer is
+polled on rank 0 while the other ranks wait (a pause holds every rank).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import random
 import time
@@ -65,6 +81,8 @@ from skyfall_gs_tpu_torch.model.gaussians import (
 )
 from skyfall_gs_tpu_torch.model.render import measure_bin_capacity, render
 from skyfall_gs_tpu_torch.ops.losses import psnr as psnr_fn
+from skyfall_gs_tpu_torch.parallel.mesh import ViewMesh
+from skyfall_gs_tpu_torch.parallel.sharding import broadcast_state_, make_parallel_train_step
 from skyfall_gs_tpu_torch.train.checkpoint import (
     load_checkpoint,
     peek_checkpoint_meta,
@@ -77,7 +95,7 @@ from skyfall_gs_tpu_torch.train.step import (
     make_eval_render,
     make_train_step,
 )
-from skyfall_gs_tpu_torch.utils.general import expon_lr_schedule
+from skyfall_gs_tpu_torch.utils.general import expon_lr_schedule, stream_seed
 from skyfall_gs_tpu_torch.viz.colormap import colorize_depth
 from skyfall_gs_tpu_torch.viz.network_gui import NetworkGUI
 
@@ -99,9 +117,12 @@ class Trainer:
     iteration; its frames are rendered at a binning capacity measured for
     the request's camera, again whenever a frame overflows.
 
+    ``mesh`` (a ``parallel.mesh.ViewMesh``) trains view-parallel (module
+    docstring); the scene must lie on the mesh's device.
+
     Not ported, each raising ``NotImplementedError`` that names where the
-    ROADMAP places it: ``mesh`` / ``mesh_mode`` and ``.orbax`` checkpoints
-    (left out of the port: multi-device TPU machinery).
+    ROADMAP places it: ``mesh_mode="gauss"`` and ``.orbax`` checkpoints
+    (left out of the port: gaussian-sharded training).
     """
 
     model_cfg: ModelConfig
@@ -114,16 +135,21 @@ class Trainer:
     gui: Optional[NetworkGUI] = None
     profile_dir: Optional[str] = None   # torch.profiler chrome trace output
     profile_steps: int = 20
-    mesh: Optional[object] = None
+    mesh: Optional[ViewMesh] = None
     mesh_mode: str = "view"
 
     def __post_init__(self):
         cfg, o = self.model_cfg, self.opt_cfg
-        if self.mesh is not None:
+        if self.mesh is not None and self.mesh_mode != "view":
             raise NotImplementedError(
-                f"multi-device training (mesh_mode={self.mesh_mode!r}) is not ported "
+                f"mesh_mode={self.mesh_mode!r} (gaussian-sharded training) is not ported "
                 "(ROADMAP: left out of the port)")
         self.device = torch.device(self.scene.device)
+        self.rank = self.mesh.rank if self.mesh is not None else 0
+        self._mesh_B = self.mesh.size if self.mesh is not None else 0
+        if self.mesh is not None and torch.device(self.mesh.device) != self.device:
+            raise ValueError(f"the scene lies on {self.device}, the mesh rank on "
+                             f"{self.mesh.device}")
         self.appearance = AppearanceConfig(
             enabled=cfg.appearance_enabled,
             n_fourier_freqs=cfg.appearance_n_fourier_freqs,
@@ -132,13 +158,19 @@ class Trainer:
         self.bg = torch.tensor([1.0, 1.0, 1.0] if cfg.white_background else [0.0, 0.0, 0.0],
                                device=self.device)
         self.py_rng = random.Random(self.rng_seed)
-        # Split offsets and ray-jitter draws.
-        self.generator = torch.Generator(device=self.device).manual_seed(self.rng_seed)
+        # Ray-jitter draws, per rank; densify's split offsets, alike on
+        # every rank.
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.rng_seed if self.rank == 0 else stream_seed(self.rng_seed, 1, self.rank))
+        self.split_generator = torch.Generator(device=self.device).manual_seed(
+            stream_seed(self.rng_seed, 2))
         self._step_fns = {}
         self._pick_pushbacks = []
         self.bin_capacity = int(self.pipe_cfg.bin_capacity) or None
         self._eval_caps = {}   # (h, w) -> measured render capacity
-        if self.logger is None:
+        if self.rank != 0:
+            self.logger = None
+        elif self.logger is None:
             self.logger = MetricsLogger(cfg.model_path)
         self.filter_cams = camera_filter_arrays([v.camera for v in self.scene.train_views])
         self.flat_index = [(key, i) for key, g in self.scene.train_groups.items()
@@ -168,6 +200,8 @@ class Trainer:
                 state.model, state.opt = grow_capacity(state.model, state.opt,
                                                        meta["capacity"])
             state, self.start_iteration = load_checkpoint(start_checkpoint, state)
+        if self.mesh is not None:
+            broadcast_state_(state, self.mesh)
         self._refresh_filter(state)
         return state
 
@@ -185,7 +219,9 @@ class Trainer:
         lpips_fn = self._get_lpips().score if self.opt_cfg.use_lpips_loss else None
         key = (use_depth, use_pseudo, photometric, testing_render, self.bin_capacity, lpips_fn)
         if key not in self._step_fns:
-            self._step_fns[key] = make_train_step(
+            build = (make_train_step if self.mesh is None
+                     else functools.partial(make_parallel_train_step, self.mesh))
+            self._step_fns[key] = build(
                 self.opt_cfg, kernel_size=self.model_cfg.kernel_size,
                 backend=self.pipe_cfg.rasterizer_backend,
                 ray_jitter=self.model_cfg.ray_jitter,
@@ -212,9 +248,9 @@ class Trainer:
         if self.pipe_cfg.bin_capacity:
             self.bin_capacity = int(self.pipe_cfg.bin_capacity)
             return
-        self.bin_capacity = measure_bin_capacity(
+        self.bin_capacity = self._mesh_max(measure_bin_capacity(
             state.model, [c for g in self.scene.train_groups.values() for c in g.cameras],
-            kernel_size=self.model_cfg.kernel_size)
+            kernel_size=self.model_cfg.kernel_size))
         # Eval capacities were measured against the old splat set.
         self._eval_caps.clear()
 
@@ -229,9 +265,28 @@ class Trainer:
                                 self.pipe_cfg.rasterizer_backend,
                                 bin_capacity=self._eval_caps[key])(model, camera, bg)
 
+    def _mesh_max(self, capacity: int) -> int:
+        """A measured binning capacity, the ranks' maximum on a mesh (so no
+        rank bins differently)."""
+        return capacity if self.mesh is None else self.mesh.max_int(capacity)
+
     def _push_back_pick(self, pick) -> None:
         """Return an unconsumed pick to the front of the stream."""
         self._pick_pushbacks.append(pick)
+
+    def _pick_step(self):
+        """One step's views: ``(group, index)`` on one device; on a mesh
+        ``(group, [B indices])``, the lead drawn as the single-device stream
+        draws it and the other B-1 uniformly from the lead's group (iid,
+        with replacement), the whole row at once."""
+        g, i = self._pick_view()
+        if self.mesh is None or isinstance(i, list):
+            return g, i
+        return g, [i] + [self.py_rng.randrange(g.size) for _ in range(self._mesh_B - 1)]
+
+    def _own(self, i):
+        """This rank's column of a pick (the pick itself on one device)."""
+        return i if self.mesh is None else i[self.rank]
 
     def _pick_view(self):
         if self._pick_pushbacks:
@@ -314,10 +369,11 @@ class Trainer:
         prof = None
         prof_start = first_iter + 20 if self.profile_dir else -1
         prof_stop = prof_start + self.profile_steps if self.profile_dir else -1
+        use_gui = self._has_gui()
 
         for iteration in range(first_iter, iterations + 1):
-            if self.gui is not None:
-                self._poll_gui(state, iteration < iterations)
+            if use_gui:
+                self._on_main(self._poll_gui, state, iteration < iterations)
             if cooldown is not None:
                 if cooldown > 0:
                     cooldown -= 1
@@ -327,7 +383,7 @@ class Trainer:
             if iteration % 1000 == 0:
                 state.model.one_up_sh_degree()
 
-            g, i = self._pick_view()
+            g, i = self._pick_step()
             use_depth = o.lambda_depth > 0 and g.has_depth
             use_pseudo = self._pseudo_at(iteration)
             pseudo = {}
@@ -338,7 +394,7 @@ class Trainer:
                 pseudo = self._pseudo_inputs(
                     state, pcam, self.depth_predictor,
                     min((iteration - o.start_sample_pseudo) / 500.0, 1.0))
-            cam, image, mask, depth = g.select(i)
+            cam, image, mask, depth = g.select(self._own(i))
             state, metrics = self._get_step_fn(use_depth, use_pseudo)(
                 state, cam, image, mask, depth, self.bg, xyz_sched(iteration),
                 lambda_opacity, generator=self.generator, **pseudo)
@@ -367,11 +423,15 @@ class Trainer:
                     torch.cuda.synchronize(self.device)
                 prof.stop()
                 os.makedirs(self.profile_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
+                prof.export_chrome_trace(os.path.join(
+                    self.profile_dir,
+                    "trace.json" if self.mesh is None else f"trace_rank{self.rank}.json"))
                 print(f"wrote profiler trace to {self.profile_dir}", flush=True)
                 prof = None
             if self.logger:
                 self.logger.log_step(iteration, metrics, time.time() - t_start)
+            if self.rank != 0:
+                continue
             if iteration in test_iterations:
                 self._report(state, iteration)
             if iteration in save_iterations:
@@ -385,6 +445,17 @@ class Trainer:
         if self.logger:
             self.logger.flush()
         return state
+
+    def _has_gui(self) -> bool:
+        """Whether a viewer is polled: on a mesh, whether rank 0 has one."""
+        if self.mesh is None:
+            return self.gui is not None
+        return bool(self.mesh.broadcast_object(self.gui is not None))
+
+    def _on_main(self, fn, *args):
+        """``fn(*args)`` on rank 0 while the other ranks wait (the call
+        itself on one device)."""
+        return fn(*args) if self.mesh is None else self.mesh.on_main(fn, *args)
 
     @torch.no_grad()
     def _poll_gui(self, state: TrainState, training_active: bool) -> None:
@@ -440,7 +511,7 @@ class Trainer:
             new_cap = max(cap * 2, -(-(2 * n_alive + 2048) // 1024) * 1024)
             state.model, state.opt = grow_capacity(state.model, state.opt, new_cap)
         stats = densify_and_prune(
-            state.model.params, state.model.aux, state.opt, self.generator,
+            state.model.params, state.model.aux, state.opt, self.split_generator,
             max_grad=o.densify_grad_threshold, min_opacity=0.005,
             extent=float(self.scene.cameras_extent),
             max_screen_size=float(o.size_threshold), percent_dense=o.percent_dense)

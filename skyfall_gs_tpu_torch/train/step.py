@@ -102,7 +102,8 @@ def _build_grads_fn(
 ):
     """Build the per-view loss/gradient core: everything from render
     through the backward, but not the optimizer update or the
-    densification statistics.
+    densification statistics (the view-parallel step combines those over
+    the mesh in between).
 
     Signature:
         grads(model, camera, gt_image (H,W,3), gt_mask (H,W), gt_depth (H,W),
@@ -206,6 +207,18 @@ def _build_grads_fn(
     return grads_fn
 
 
+def apply_update(state: TrainState, grads: GaussianParams, opt_cfg, xyz_lr: float) -> None:
+    """The optimizer half of a step, IN PLACE: Adam with per-field LRs (the
+    scheduled ``xyz_lr``) and the appearance embeddings' weight decay, then
+    the step count.  The single-device step runs it right after its own
+    gradients; the view-parallel step (``parallel/sharding.py``) after the
+    gradients are averaged over the mesh."""
+    params = state.model.params
+    adam_update(grads, state.opt, params, make_lr_tree(params, opt_cfg, xyz_lr),
+                weight_decay_tree=make_weight_decay_tree(params, opt_cfg))
+    state.step += 1
+
+
 def make_train_step(opt_cfg, **kwargs):
     """Build the single training step (``kwargs`` as for
     :func:`_build_grads_fn`).
@@ -230,10 +243,7 @@ def make_train_step(opt_cfg, **kwargs):
             generator, subpixel_offset, **pseudo)
         add_densification_stats(model.aux, g_mean2d, g_abs, aux["radii"],
                                 camera.width, camera.height)
-        adam_update(grads, state.opt, model.params,
-                    make_lr_tree(model.params, opt_cfg, xyz_lr),
-                    weight_decay_tree=make_weight_decay_tree(model.params, opt_cfg))
-        state.step += 1
+        apply_update(state, grads, opt_cfg, xyz_lr)
         metrics = StepMetrics(
             loss=loss,
             l1=aux["l1"],

@@ -61,3 +61,9 @@ def seed_everything(seed: int = 0) -> None:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+def stream_seed(seed: int, *keys: int) -> int:
+    """A seed for the random stream named by ``keys`` under ``seed``,
+    independent of ``seed``'s own stream and of every other name."""
+    return int(np.random.SeedSequence([seed, *keys]).generate_state(1, np.uint64)[0] >> 1)

@@ -216,9 +216,9 @@ def test_ges_path_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("flags, where", [
     (["--gui_port"], None),
-    (["--data_parallel", "2"], "ROADMAP: left out of the port"),
+    (["--data_parallel", "2"], None),
     (["--shard_gaussians", "-1"], "ROADMAP: left out of the port"),
-    ([], "ROADMAP: left out of the port"),          # with a multi-host environment
+    ([], "partial multi-host"),          # with half a multi-host environment
 ], ids=["gui_port", "data_parallel", "shard_gaussians", "multi_host"])
 def test_unported_options_raise(chain, tmp_path, monkeypatch, flags, where):
     if flags == ["--gui_port"]:
@@ -247,12 +247,32 @@ def test_unported_options_raise(chain, tmp_path, monkeypatch, flags, where):
         assert [len(f) for f in viewer.frames] == [8 * 8 * 3] * 2
         assert viewer.verify == [str(chain[0] / "scene")] * 2
         return
+    if flags == ["--data_parallel", "2"]:
+        # Ported: two gloo ranks train view-parallel; rank 0 writes.
+        out = train_cli.main(["-s", str(chain[0] / "scene"), "-m", str(tmp_path / "m"),
+                              "--iterations", "2", "--checkpoint_iterations", "2",
+                              "--device", "cpu", "--quiet"] + flags)
+        assert out is None
+        assert (tmp_path / "m" / "chkpnt2.npz").is_file()
+        assert (tmp_path / "m" / "cfg_args.json").is_file()
+        return
     if not flags:
+        # Ported: a pod needs all of SKYFALL_COORDINATOR / _NUM_PROCESSES /
+        # _PROCESS_ID; half a configuration raises before anything is written.
+        for v in ("SKYFALL_COORDINATOR", "SKYFALL_PROCESS_ID"):
+            monkeypatch.delenv(v, raising=False)
         monkeypatch.setenv("SKYFALL_NUM_PROCESSES", "2")
+        with pytest.raises(RuntimeError, match=where):
+            train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), "--device", "cpu"])
+        assert not (tmp_path / "m").exists()
+        return
     with pytest.raises(NotImplementedError, match=f"not ported \\({where}\\)"):
         train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), "--device", "cpu"]
                        + flags)
     assert not (tmp_path / "m").exists()
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), "--device", "cpu",
+                        "--data_parallel", "2"] + flags)
 
 
 def test_device_and_required_flags(tmp_path, monkeypatch):

@@ -258,7 +258,25 @@ def test_unported_options_raise(scenes, tmp_path, case):
     _, tscene, _ = scenes
     kw, opt = {}, {}
     if case == "mesh":
-        kw["mesh"] = object()
+        # Ported: a 1-rank gloo view mesh trains; the gaussian-sharded mode
+        # is still left out.
+        import torch.distributed as dist
+        from skyfall_gs_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(1, backend="gloo", device="cpu", rank=0,
+                         init_method=f"file://{tmp_path / 'rendezvous'}")
+        try:
+            tr = TTrainer(model_cfg(tmp_path), opt_cfg(), PipelineConfig(), tscene, mesh=mesh)
+            state = tr.train(tr.init_state(), iterations=2)
+            with pytest.raises(NotImplementedError, match="ROADMAP: left out of the port"):
+                TTrainer(model_cfg(tmp_path), opt_cfg(), PipelineConfig(), tscene, mesh=mesh,
+                         mesh_mode="gauss")
+        finally:
+            dist.destroy_process_group()
+        assert state.step == 2 and tr._mesh_B == 1
+        for _, v in tg.flat_fields(state.model.params):
+            assert torch.isfinite(v).all()
+        return
     elif case == "gui":
         # Ported: the Trainer takes a listening NetworkGUI.
         from skyfall_gs_tpu_torch.viz.network_gui import NetworkGUI
