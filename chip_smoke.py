@@ -108,12 +108,29 @@ Phases, one line each:
      alone writes its files) and ``cli.train --data_parallel 1`` (NCCL, 300
      iterations, every file written); (11d) the tile-parallel 1920x1080
      frame against the direct render (JAX's band bounds 6e-2 max, 5e-3
-     mean) and ``make_parallel_render`` of 2 cameras against each alone.
+     mean) and ``make_parallel_render`` of 2 cameras against each alone;
+ 12. gaussian-sharded training (rank programs of this file, as in 11):
+     (12a) the bench workload through ``make_gauss_sharded_train_step``, its
+     state split by rows over G ranks, on NCCL at G = min(device_count, 2)
+     and at G = 2 on two gloo ranks sharing cuda:0: one step held against
+     the G-bin step emulated in one process (``binned_render``; loss 1e-4
+     relative, gradients and statistics 1e-3 norm-relative) and against
+     the single-device step (``grad_accum`` sum within 2% of it: the true
+     gradient, where the JAX package's step gives G times it), 20 steps
+     timed, the gathered states' digests equal, the step's 7 collectives
+     timed alone, state MB and peak memory per rank; (12b) on phase 6's
+     scene a gauss-mode Trainer on the gloo ranks (200 iterations, pseudo
+     views, one densify pass with capacity growth), its ``chkpnt200.orbax``
+     restored on 2 shards and whole (equal to the ``.npz`` of the gathered
+     state), one IDU episode from phase 6's checkpoint (2 views at 1024^2,
+     100 iterations, overflow 0) and ``cli.train --shard_gaussians 1``
+     (NCCL); (12c) one (2, 2) grid step on four gloo ranks held against the
+     two views' 2-bin steps averaged, then 5 steps timed.
 Each measurement line carries the card's name and power limit.  The last
 three lines before the final one are a summary of the kernels at the bench
 shape (time, bound, share of it, plain version, launches, ptxas), their
 JSON record (launches counted over phases 3, 5, 6, 7, 8a, 8d, 9, 10a-10c
-and every rank of 11; 10d's jobs run in subprocesses and are not counted) and the
+and every rank of 11 and 12; 10d's jobs run in subprocesses and are not counted) and the
 card's name and power limit; the final line is the JSON result.  Any failure
 raises, and the script exits non-zero without a result.  There is no CPU path.
 """
@@ -296,6 +313,20 @@ P_S1_OPT = dict(densify_from_iter=150, densification_interval=50,
 P_IDU_OPT = dict(CHAIN, idu_refine=False, densification_interval=25)
 P_VIEW = dict(elevation=45.0, radius=300.0, fov_deg=60.0, width=1920, height=1080)
 P_BAND_MAX, P_BAND_MEAN = 6e-2, 5e-3   # tests/test_train.py:290-311's band bounds
+
+# Phase 12: gaussian-sharded training.  12a the bench workload through
+# make_gauss_sharded_train_step on NCCL at world size min(device_count, 2)
+# and on two gloo ranks sharing cuda:0, each held against the G-bin step
+# emulated in one process (``binned_render``: the same bins, the exact
+# merge, no collective) with phase 11's gates; 12b the entry points on
+# phase 6's scene with phase 11's settings; 12c one (2, 2) grid step on four
+# gloo ranks.  The sharded step against the single-device step differs only
+# where a bin stops at its own T = 1e-4: its grad_accum sum within
+# G_SINGLE_RATIO of the single-device one (JAX's sharded step gives G times
+# it; tests/test_torch_gauss_shard.py).
+G_SINGLE_RATIO = 0.02
+G_STEPS = 20
+G_GRID_STEPS = 5
 
 
 def log(phase, msg: str) -> None:
@@ -2340,6 +2371,515 @@ def parallel_phase(torch, rt, dev, card: str, tmp: Path, sat: dict, phase3_ms: f
 
 
 # ----------------------------------------------------------------------------
+# Phase 12: gaussian-sharded training (rank programs run through parallel.mesh.launch)
+# ----------------------------------------------------------------------------
+
+def binned_render(state, camera, bg, num_bins: int, kernel_size: float = 0.1,
+                  subpixel_offset=None, testing: bool = False, mean2d_dummy=None,
+                  mean2d_abs_dummy=None, bin_capacity=None, **_):
+    """The G-bin sharded render emulated in one process: every splat, the
+    same global depth-quantile bins (``gauss_shard._depth_bin_edges``), one
+    composite per bin with the other bins' splats at radius 0, the same
+    over-merge in bin order.  ``model.render.render``'s signature, for
+    ``_build_grads_fn(render_fn=...)``: the G-bin step's loss and true
+    gradient with no collective."""
+    import torch
+
+    from skyfall_gs_tpu_torch.model.render import _activated, compute_colors
+    from skyfall_gs_tpu_torch.ops.projection import project_gaussians
+    from skyfall_gs_tpu_torch.ops.rasterize import RenderOutput
+    from skyfall_gs_tpu_torch.ops.rasterize_tiled import composite_tiled
+    from skyfall_gs_tpu_torch.parallel.gauss_shard import _depth_bin_edges
+
+    scales, opac = _activated(state, True)
+    p = state.params
+    proj = project_gaussians(p.xyz, scales, p.rotation, opac, camera, kernel_size=kernel_size,
+                             mask=state.aux.alive)
+    mean2d = proj.mean2d if mean2d_dummy is None else proj.mean2d + mean2d_dummy
+    chans = torch.cat([compute_colors(state, camera, testing=testing), proj.depth[:, None],
+                       torch.zeros_like(p.xyz)], 1)
+    depth = proj.depth.detach()
+    edges = _depth_bin_edges(depth, proj.radius > 0, num_bins)
+    acc = t_all = overflow = None
+    for k in range(num_bins):
+        in_bin = (depth >= edges[k]) & (depth < edges[k + 1])
+        out, tf, ov = composite_tiled(
+            mean2d, proj.conic, proj.depth, torch.where(in_bin, proj.radius, 0), proj.opacity,
+            chans, camera.height, camera.width, subpixel_offset=subpixel_offset,
+            mean2d_abs_dummy=mean2d_abs_dummy, cap=bin_capacity,
+            radius_xy=torch.where(in_bin[:, None], proj.radius_xy, 0))
+        if k == 0:
+            acc, t_all, overflow = out, tf, ov
+        else:
+            acc, t_all, overflow = acc + t_all[..., None] * out, t_all * tf, overflow + ov
+    alpha = 1.0 - t_all
+    return RenderOutput(color=acc[..., :3] + t_all[..., None] * bg[None, None, :],
+                        depth=acc[..., 3] / torch.clamp_min(alpha, 1e-8), normal=acc[..., 4:7],
+                        alpha=alpha, radii=proj.radius, overflow=overflow)
+
+
+def _bench_view(torch, dev):
+    """Phase 3's bench state, cameras and view (its draws, in its order)."""
+    rng = np.random.default_rng(0)
+    state, cams = bench_scene(rng, dev, N_GAUSSIANS, IMG)
+    gt = torch.from_numpy(rng.uniform(0, 1, (IMG, IMG, 3)).astype(np.float32)).to(dev)
+    mask = torch.ones((IMG, IMG), device=dev)
+    gt_depth = torch.from_numpy(rng.uniform(1, 500, (IMG, IMG)).astype(np.float32)).to(dev)
+    return state, cams, gt, mask, gt_depth, torch.zeros(3, device=dev)
+
+
+def _reference_grads(torch, opt_cfg, model, views, num_bins: int, kw: dict):
+    """The mean over ``views`` of the ``num_bins``-bin step's loss, gradients
+    and statistics, in this process; with the single-device step's
+    grad_accum sum beside them."""
+    import functools
+
+    from skyfall_gs_tpu_torch.model.densify import densification_terms
+    from skyfall_gs_tpu_torch.model.gaussians import flat_fields
+    from skyfall_gs_tpu_torch.train.step import _build_grads_fn
+
+    binned = _build_grads_fn(opt_cfg, render_fn=functools.partial(binned_render,
+                                                                  num_bins=num_bins), **kw)
+    single = _build_grads_fn(opt_cfg, **kw)
+    loss, grads, stats, single_sum = 0.0, {}, {}, 0.0
+    b = len(views)
+    for cam, gt, mask, gt_depth, bg in views:
+        lv, aux, g, gd = binned(model, cam, gt, mask, gt_depth, bg, 0.1)
+        loss += float(lv) / b
+        for k, v in flat_fields(g):
+            grads[k] = grads.get(k, 0.0) + v / b
+        terms = densification_terms(model.aux, *gd, aux["radii"], cam.width, cam.height)
+        for k, v in zip(("grad_accum", "grad_accum_abs", "denom"), terms):
+            stats[k] = stats.get(k, 0.0) + v
+        _, s_aux, _, s_gd = single(model, cam, gt, mask, gt_depth, bg, 0.1)
+        single_sum += float(densification_terms(model.aux, *s_gd, s_aux["radii"], cam.width,
+                                                cam.height)[0].sum())
+    return {"loss": loss, "grads": grads, "stats": stats, "single_sum": single_sum}
+
+
+def _hold(ref: dict, loss: float, full) -> dict:
+    """A sharded step's gathered state after one step against the reference
+    (Adam's first moment is (1 - b1) times the gradient)."""
+    from skyfall_gs_tpu_torch.model.gaussians import flat_fields
+
+    mu = dict(flat_fields(full.opt.mu))
+    aux = full.model.aux
+    return {"loss": loss, "ref_loss": ref["loss"],
+            "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+            "grad_rel": {k: rel_norm(mu[k] / 0.1, g) for k, g in ref["grads"].items()},
+            "stat_rel": {k: rel_norm(getattr(aux, k), v) for k, v in ref["stats"].items()},
+            "single_ratio": float(aux.grad_accum.sum()) / ref["single_sum"]}
+
+
+def _state_mb(ts) -> float:
+    from skyfall_gs_tpu_torch.model.gaussians import flat_fields
+
+    parts = (ts.model.params, ts.model.aux, ts.opt.mu, ts.opt.nu)
+    return sum(t.numel() * t.element_size() for p in parts for _, t in flat_fields(p)) / 1e6
+
+
+def _gauss_collectives(torch, mesh, n: int, views: int = 1) -> dict:
+    """The sharded step's collectives alone, at its sizes (the bench has no
+    appearance): the screen-attribute, radii and image gathers, the
+    overflow and entropy all-reduces, the reduce-scatter of the attributes'
+    gradient, the n_alive all-reduce; ms by CUDA events."""
+    dev = mesh.device
+    bufs = dict(table=torch.zeros((n, 16), device=dev),
+                ints=torch.zeros((n, 3), dtype=torch.int32, device=dev),
+                image=torch.zeros((IMG, IMG, 8), device=dev),
+                ov=torch.zeros(1, dtype=torch.int64, device=dev),
+                ent=torch.zeros(2, dtype=torch.float64, device=dev),
+                grad=torch.zeros((mesh.size, n, 16), device=dev))
+
+    def collectives():
+        mesh.all_gather(bufs["table"])
+        mesh.all_gather(bufs["ints"])
+        mesh.all_gather(bufs["image"])
+        mesh.all_reduce_(bufs["ov"])
+        mesh.all_reduce_(bufs["ent"])
+        mesh.reduce_scatter(bufs["grad"])
+        mesh.all_reduce_(bufs["ov"])
+
+    for _ in range(3):
+        collectives()
+    before = dict(mesh.traffic)
+    collectives()
+    n_bytes = mesh.traffic["bytes"] - before["bytes"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(P_STEPS + 1)]
+    for i in range(P_STEPS):
+        ev[i].record()
+        collectives()
+    ev[P_STEPS].record()
+    torch.cuda.synchronize()
+    return {"ms": [ev[i].elapsed_time(ev[i + 1]) for i in range(P_STEPS)], "bytes": n_bytes}
+
+
+def gauss_step_rank(mesh, n_steps: int) -> dict:
+    """12a in one rank: the bench workload's state, this rank's shard of
+    it; rank 0 computes the G-bin step in one process and the
+    single-device step, and holds one sharded step against them; then
+    ``n_steps`` steps timed (CUDA events), the gathered state's digest on
+    every rank, the step's collectives timed alone."""
+    import dataclasses
+
+    import torch
+
+    from skyfall_gs_tpu_torch.config import OptimizationConfig
+    from skyfall_gs_tpu_torch.model.gaussians import flat_fields
+    from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
+    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+    from skyfall_gs_tpu_torch.parallel import gauss_shard as gs
+    from skyfall_gs_tpu_torch.parallel.sharding import state_digest
+    from skyfall_gs_tpu_torch.train.step import init_train_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = dataclasses.replace(mesh, axis="gauss")
+    dev, g, r = mesh.device, mesh.size, mesh.rank
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, cams, gt, mask, gt_depth, bg = _bench_view(torch, dev)
+    full = init_train_state(state)
+    opt_cfg = OptimizationConfig()
+    ts = gs.shard_train_state(full, mesh)
+    cap = measure_bin_capacity(ts.model, cams, kernel_size=0.1, mesh=mesh)
+    kw = dict(use_depth=True, bin_capacity=cap)
+    out = {"size": g, "backend": mesh.backend, "capacity": cap,
+           "rows": ts.model.params.capacity, "state_mb": _state_mb(ts)}
+    ref = (_reference_grads(torch, opt_cfg, full.model, [(cams[0], gt, mask, gt_depth, bg)], g,
+                            kw) if r == 0 else None)
+    del full, state
+    torch.cuda.empty_cache()
+    step = gs.make_gauss_sharded_train_step(mesh, opt_cfg, **kw)
+    mesh.barrier()
+    reset_launches(rt)
+    mesh.traffic.update(collectives=0, bytes=0)
+    ts, m = step(ts, cams[0], gt, mask, gt_depth, bg, 1e-4, 0.1)
+    out["bytes_per_step"] = mesh.traffic["bytes"]
+    out["collectives_per_step"] = mesh.traffic["collectives"]
+    gathered = gs.gather_train_state(ts, mesh)
+    if r == 0:
+        out.update(_hold(ref, float(m.loss), gathered))
+        out["overflow0"] = int(m.overflow)
+    del gathered, ref
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+    losses, overflow = [], []
+    for i in range(WARMUP_STEPS + n_steps):
+        if i >= WARMUP_STEPS:
+            events[i - WARMUP_STEPS].record()
+        ts, m = step(ts, cams[i % len(cams)], gt, mask, gt_depth, bg, 1e-4, 0.1)
+        losses.append(m.loss)
+        overflow.append(m.overflow)
+    events[n_steps].record()
+    torch.cuda.synchronize()
+    out["step_ms"] = [events[i].elapsed_time(events[i + 1]) for i in range(n_steps)]
+    out["losses"] = torch.stack(losses).tolist()
+    out["max_overflow"] = int(torch.stack(overflow).max())
+    out["finite"] = all(bool(torch.isfinite(v).all()) for _, v in flat_fields(ts.model.params))
+    out["digest"] = state_digest(gs.gather_train_state(ts, mesh))
+    out["launches"] = launches_of(rt)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["collectives"] = _gauss_collectives(torch, mesh, ts.model.params.capacity)
+    return out
+
+
+def gauss_trainer_rank(mesh, scene_dir: str, ckpt: str, out_dir: str) -> dict:
+    """12b in one rank: a Trainer on the gauss mesh for P_S1_ITERS
+    iterations from the scene's points (pseudo views, one densify pass
+    with growth at the end), its sharded checkpoint restored on this mesh
+    and, on rank 0, whole beside the .npz of the gathered state; then one
+    IDU episode from phase 6's checkpoint."""
+    import dataclasses
+
+    import torch
+
+    from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from skyfall_gs_tpu_torch.io.scene import load_scene
+    from skyfall_gs_tpu_torch.model.gaussians import flat_fields
+    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+    from skyfall_gs_tpu_torch.parallel.gauss_shard import gather_train_state
+    from skyfall_gs_tpu_torch.parallel.sharding import state_digest
+    from skyfall_gs_tpu_torch.priors import IdentityRefiner, RenderDepthPredictor
+    from skyfall_gs_tpu_torch.train.checkpoint import save_checkpoint
+    from skyfall_gs_tpu_torch.train.idu import IDUOrchestrator
+    from skyfall_gs_tpu_torch.train.loop import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = dataclasses.replace(mesh, axis="gauss")
+    out_dir = Path(out_dir)
+    scene = load_scene(scene_dir, eval_split=True, device=mesh.device)
+    reset_launches(rt)
+
+    def trainer(name, opt, m=mesh, pred=None):
+        return Trainer(ModelConfig(model_path=str(out_dir / name)), opt, PipelineConfig(), scene,
+                       depth_predictor=pred, rng_seed=0, mesh=m, mesh_mode="gauss")
+
+    def digest(state):
+        return state_digest(gather_train_state(state, mesh))
+
+    out = {}
+    t = trainer("stage1", OptimizationConfig(iterations=P_S1_ITERS, **P_S1_OPT),
+                pred=RenderDepthPredictor())
+    losses = []
+    if t.logger:
+        log_step = t.logger.log_step
+
+        def spy(it, metrics, elapsed):
+            losses.append(metrics.l1)
+            log_step(it, metrics, elapsed)
+        t.logger.log_step = spy
+    state = t.init_state()
+    out["cap0"] = state.model.params.capacity * mesh.size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = t.train(state, iterations=P_S1_ITERS, checkpoint_iterations=(P_S1_ITERS,))
+    torch.cuda.synchronize()
+    out["s1_wall"] = time.perf_counter() - t0
+    out["s1_l1"] = torch.stack(losses).tolist() if losses else []
+    out["s1_overflow"] = int(t.max_overflow)
+    out["s1_finite"] = all(bool(torch.isfinite(v).all())
+                           for _, v in flat_fields(state.model.params))
+    out["s1_splats"] = int(mesh.all_reduce_(state.model.num_alive.reshape(1))[0])
+    out["s1_capacity"] = state.model.params.capacity * mesh.size
+    out["s1_rows"] = state.model.params.capacity
+    out["s1_digest"] = digest(state)
+    sharded = out_dir / "stage1" / f"chkpnt{P_S1_ITERS}.orbax"
+    restored = trainer("restored", OptimizationConfig()).init_state(str(sharded))
+    out["restored_digest"] = digest(restored)
+    full = gather_train_state(state, mesh)
+    if mesh.is_main:
+        # The checkpoint restored whole, beside the .npz of the gathered state.
+        save_checkpoint(str(out_dir / "gathered.npz"), full, P_S1_ITERS)
+        whole = trainer("whole", OptimizationConfig(), m=None).init_state(str(sharded))
+        npz = trainer("npz", OptimizationConfig(), m=None).init_state(str(out_dir / "gathered.npz"))
+        out["whole_vs_npz"] = state_digest(whole) == state_digest(npz)
+        out["whole_vs_trained"] = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            flat_fields(whole.model.params), flat_fields(full.model.params)))
+        del whole, npz
+    del t, state, restored, full
+    torch.cuda.empty_cache()
+
+    t = trainer("idu", OptimizationConfig(**P_IDU_OPT))
+    state = t.init_state(ckpt)
+    orch = IDUOrchestrator(t, IdentityRefiner(), RenderDepthPredictor())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = orch.run(state, t.start_iteration, episodes=1)
+    torch.cuda.synchronize()
+    out["idu_wall"] = time.perf_counter() - t0
+    out["idu_episode"] = orch.episodes[0]
+    out["idu_overflow"] = max(orch.max_overflow, int(t.max_overflow))
+    out["idu_end"] = t.start_iteration + P_IDU_OPT["idu_episode_iterations"]
+    out["idu_finite"] = all(bool(torch.isfinite(v).all())
+                            for _, v in flat_fields(state.model.params))
+    out["idu_digest"] = digest(state)
+    out["launches"] = launches_of(rt)
+    return out
+
+
+def gauss_gloo_ranks(mesh, scene_dir: str, ckpt: str, out_dir: str) -> dict:
+    """12a at G = 2 and the 12b Trainer, checkpoint and IDU episode, on the
+    gloo ranks sharing one card."""
+    return {"step": gauss_step_rank(mesh, G_STEPS),
+            "trainer": gauss_trainer_rank(mesh, scene_dir, ckpt, out_dir)}
+
+
+def grid_rank(mesh, n_steps: int) -> dict:
+    """12c in one rank of four: the (2, 2) grid (rank d*2+g trains view d
+    with shard g) at the bench workload; rank 0 holds one step against the
+    2-bin step of the two views averaged in one process, then ``n_steps``
+    steps are timed."""
+    import torch
+
+    from skyfall_gs_tpu_torch.config import OptimizationConfig
+    from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
+    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+    from skyfall_gs_tpu_torch.parallel import gauss_shard as gs
+    from skyfall_gs_tpu_torch.parallel.mesh import grid_meshes
+    from skyfall_gs_tpu_torch.parallel.sharding import state_digest
+    from skyfall_gs_tpu_torch.train.step import init_train_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data, gauss = grid_meshes(mesh, (2, 2))
+    dev = mesh.device
+    state, cams, gt, mask, gt_depth, bg = _bench_view(torch, dev)
+    full = init_train_state(state)
+    opt_cfg = OptimizationConfig()
+    ts = gs.shard_train_state(full, gauss)
+    cap = data.max_int(measure_bin_capacity(ts.model, cams[:2], kernel_size=0.1, mesh=gauss))
+    kw = dict(use_depth=True, bin_capacity=cap)
+    ref = (_reference_grads(torch, opt_cfg, full.model,
+                            [(cams[v], gt, mask, gt_depth, bg) for v in range(2)], 2, kw)
+           if mesh.is_main else None)
+    del full, state
+    torch.cuda.empty_cache()
+    step = gs.make_grid_train_step(data, gauss, opt_cfg, **kw)
+    mesh.barrier()
+    reset_launches(rt)
+    d = data.rank
+    ts, m = step(ts, cams[d], gt, mask, gt_depth, bg, 1e-4, 0.1)
+    gathered = gs.gather_train_state(ts, gauss)
+    out = {"data_rank": d, "gauss_rank": gauss.rank, "capacity": cap,
+           "digest": state_digest(gathered)}
+    if mesh.is_main:
+        out.update(_hold(ref, float(m.loss), gathered))
+        out["overflow0"] = int(m.overflow)
+    del gathered, ref
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+    for i in range(n_steps):
+        events[i].record()
+        ts, m = step(ts, cams[(2 * i + d) % len(cams)], gt, mask, gt_depth, bg, 1e-4, 0.1)
+    events[n_steps].record()
+    torch.cuda.synchronize()
+    out["step_ms"] = [events[i].elapsed_time(events[i + 1]) for i in range(n_steps)]
+    out["launches"] = launches_of(rt)
+    return out
+
+
+def gauss_phase(torch, rt, dev, card: str, tmp: Path, sat: dict, phase3_ms: float) -> dict:
+    """Phase 12; returns the kernels' launch counts of every rank."""
+    from skyfall_gs_tpu_torch.cli import train as train_cli
+    from skyfall_gs_tpu_torch.parallel.mesh import launch
+
+    t_phase = time.perf_counter()
+    launches = {"fwd": 0, "bwd": 0}
+    n_gpus = torch.cuda.device_count()
+    ckpt = str(sat["median"]["model"] / f"chkpnt{TRAIN_ITERS}.npz")
+
+    def step_lines(tag, res, route):
+        r0 = res[0]
+        step_ms = float(np.median(r0["step_ms"]))
+        coll = r0["collectives"]
+        coll_ms = float(np.median(coll["ms"]))
+        digests = {x["digest"] for x in res}
+        worst = max(r0["grad_rel"], key=r0["grad_rel"].get)
+        worst_s = max(r0["stat_rel"], key=r0["stat_rel"].get)
+        log(tag, f"{route} on [{card}]: G = {r0['size']} shards of {r0['rows']} rows at "
+                 f"{IMG}px / {N_GAUSSIANS} splats (capacity {int(N_GAUSSIANS * 1.25)}, bin "
+                 f"capacity {r0['capacity']}); one step against the {r0['size']}-bin step in one "
+                 f"process: loss {r0['loss']:.6f} vs {r0['ref_loss']:.6f} (rel "
+                 f"{r0['loss_rel']:.2e}, tol {P_LOSS_REL}), worst gradient rel norm "
+                 f"{r0['grad_rel'][worst]:.2e} ({worst}, tol {P_GRAD_REL}), worst stat rel norm "
+                 f"{r0['stat_rel'][worst_s]:.2e} ({worst_s}); grad_accum sum / the single-device "
+                 f"step's {r0['single_ratio']:.5f} (tol {G_SINGLE_RATIO}); {G_STEPS} steps: "
+                 f"median {step_ms:.3f} ms per step (phase 3's single-device step "
+                 f"{phase3_ms:.3f} ms), loss {r0['losses'][0]:.5f} -> {r0['losses'][-1]:.5f}, "
+                 f"max overflow {r0['max_overflow']}; collectives {r0['collectives_per_step']} "
+                 f"per step, {r0['bytes_per_step'] / 1e6:.3f} MB per step, alone median "
+                 f"{coll_ms:.3f} ms ({coll['bytes'] / 1e6:.3f} MB); state per rank "
+                 f"{r0['state_mb']:.1f} MB, peak memory per rank "
+                 f"{max(x['peak_gib'] for x in res):.2f} GiB; launches per rank fwd "
+                 f"{r0['launches']['fwd']} bwd {r0['launches']['bwd']}; gathered-state digests "
+                 f"equal on {len(res)} ranks: {len(digests) == 1}")
+        assert r0["loss_rel"] <= P_LOSS_REL, r0["loss_rel"]
+        assert max(r0["grad_rel"].values()) <= P_GRAD_REL, r0["grad_rel"]
+        assert max(r0["stat_rel"].values()) <= P_GRAD_REL, r0["stat_rel"]
+        assert abs(r0["single_ratio"] - 1.0) <= G_SINGLE_RATIO, r0["single_ratio"]
+        assert r0["overflow0"] == 0 and all(x["max_overflow"] == 0 for x in res)
+        assert all(x["finite"] and np.isfinite(x["losses"]).all() for x in res)
+        assert len(digests) == 1, digests
+        assert r0["collectives_per_step"] == 7, r0["collectives_per_step"]
+        for x in res:
+            assert x["launches"]["fwd"] > 0 and x["launches"]["bwd"] > 0, x["launches"]
+
+    # -- 12a: NCCL, one rank per GPU --------------------------------------------
+    world = min(n_gpus, 2)
+    t0 = time.perf_counter()
+    res = launch(gauss_step_rank, world, (G_STEPS,), device=DEVICE, timeout_s=P_TIMEOUT_S,
+                 join_timeout_s=P_JOIN_S)
+    step_lines("12a", res, f"NCCL over {world} of {n_gpus} visible GPUs")
+    add_launches(launches, [x["launches"] for x in res])
+    log("12a", f"{time.perf_counter() - t0:.1f} s with the ranks' start; NCCL across two "
+               f"cards {'measured' if world == 2 else 'not measured (one GPU visible)'}")
+
+    # -- 12a at G = 2 and 12b: two gloo ranks sharing cuda:0 ----------------------
+    t0 = time.perf_counter()
+    res = launch(gauss_gloo_ranks, 2, (str(sat["scene"]), ckpt, str(tmp / "p12")),
+                 device=f"{DEVICE}:0", backend="gloo", timeout_s=P_TIMEOUT_S,
+                 join_timeout_s=P_JOIN_S)
+    step_lines("12a", [x["step"] for x in res], "2 gloo ranks sharing cuda:0")
+    tr = [x["trainer"] for x in res]
+    t0r = tr[0]
+    first, last = np.mean(t0r["s1_l1"][:20]), np.mean(t0r["s1_l1"][-20:])
+    ep = t0r["idu_episode"]
+    log("12b", f"Trainer(mesh=make_mesh(2, backend='gloo', device='cuda:0'), mesh_mode='gauss') "
+               f"on [{card}]: {P_S1_ITERS} Stage-1 iterations from the scene's points "
+               f"({P_S1_OPT}) in {t0r['s1_wall']:.2f} s ({P_S1_ITERS / t0r['s1_wall']:.1f} it/s), "
+               f"L1 first 20 {first:.5f} -> last 20 {last:.5f}, splats {t0r['s1_splats']}, "
+               f"capacity {t0r['cap0']} -> {t0r['s1_capacity']} ({t0r['s1_rows']} rows per "
+               f"rank), max overflow {t0r['s1_overflow']}; chkpnt{P_S1_ITERS}.orbax restored on "
+               f"2 shards equal: {len({x['restored_digest'] for x in tr} | {t0r['s1_digest']}) == 1}"
+               f", whole equal to the gathered .npz: {t0r['whole_vs_npz']} and to the trained "
+               f"parameters: {t0r['whole_vs_trained']}; one IDU episode from {Path(ckpt).name} "
+               f"({ep['views']} views at {ep['size']}^2, {ep['iterations']} iterations) in "
+               f"{t0r['idu_wall']:.2f} s (views {ep['views_s']:.2f} s, training "
+               f"{ep['train_s']:.2f} s), overflow {t0r['idu_overflow']}; gathered digests equal "
+               f"after each: {len({x['s1_digest'] for x in tr}) == 1 and len({x['idu_digest'] for x in tr}) == 1}")
+    assert all(np.isfinite(x["s1_l1"]).all() for x in tr) and last < first, (first, last)
+    assert all(x["s1_overflow"] == 0 and x["idu_overflow"] == 0 for x in tr)
+    assert all(x["s1_finite"] and x["idu_finite"] for x in tr)
+    assert t0r["s1_capacity"] > t0r["cap0"] and t0r["s1_capacity"] % 2 == 0
+    assert len({x["s1_digest"] for x in tr} | {x["restored_digest"] for x in tr}) == 1
+    assert t0r["whole_vs_npz"] and t0r["whole_vs_trained"]
+    assert len({x["idu_digest"] for x in tr}) == 1
+    assert (tmp / "p12" / "idu" / f"chkpnt{t0r['idu_end']}.orbax" / "index.json").is_file()
+    assert ep["views"] == 2, ep
+    add_launches(launches, [x[k]["launches"] for x in res for k in ("step", "trainer")])
+    log(12, f"12a (gloo) and 12b {time.perf_counter() - t0:.1f} s with the ranks' start")
+
+    # -- 12c: one (2, 2) grid step on four gloo ranks ------------------------------
+    t0 = time.perf_counter()
+    res = launch(grid_rank, 4, (G_GRID_STEPS,), device=f"{DEVICE}:0", backend="gloo",
+                 timeout_s=P_TIMEOUT_S, join_timeout_s=P_JOIN_S)
+    r0 = res[0]
+    worst = max(r0["grad_rel"], key=r0["grad_rel"].get)
+    log("12c", f"(2, 2) grid on 4 gloo ranks sharing [{card}] at {IMG}px / {N_GAUSSIANS} "
+               f"splats: one step against the 2-bin step of the two views averaged in one "
+               f"process: loss {r0['loss']:.6f} vs {r0['ref_loss']:.6f} (rel {r0['loss_rel']:.2e}"
+               f"), worst gradient rel norm {r0['grad_rel'][worst]:.2e} ({worst}), worst stat "
+               f"rel norm {max(r0['stat_rel'].values()):.2e}; {G_GRID_STEPS} steps median "
+               f"{float(np.median(r0['step_ms'])):.3f} ms per step (2 views); gathered digests "
+               f"equal on each data row: "
+               f"{res[0]['digest'] == res[1]['digest'] and res[2]['digest'] == res[3]['digest']}")
+    assert [(x["data_rank"], x["gauss_rank"]) for x in res] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert r0["loss_rel"] <= P_LOSS_REL and max(r0["grad_rel"].values()) <= P_GRAD_REL
+    assert max(r0["stat_rel"].values()) <= P_GRAD_REL, r0["stat_rel"]
+    assert r0["overflow0"] == 0
+    assert len({x["digest"] for x in res}) == 1
+    add_launches(launches, [x["launches"] for x in res])
+    log("12c", f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+
+    # -- 12b: cli.train --shard_gaussians 1 (NCCL) ---------------------------------
+    t0 = time.perf_counter()
+    model = tmp / "p12_cli"
+    out = train_cli.main(["-s", str(sat["scene"]), "-m", str(model), "--eval", "--iterations",
+                          str(P_CLI_ITERS), "--test_iterations", str(P_CLI_ITERS),
+                          "--save_iterations", str(P_CLI_ITERS), "--checkpoint_iterations",
+                          str(P_CLI_ITERS), "--shard_gaussians", "1", "--device", DEVICE,
+                          "--quiet"])
+    wall = time.perf_counter() - t0
+    with open(model / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if r["type"] == "step"]
+    evals = [r for r in records if r["type"] == "eval" and r["split"] == "test"]
+    written = [p for p in ("cfg_args.json", "input.ply", "cameras.json",
+                           f"chkpnt{P_CLI_ITERS}.orbax/index.json", "metrics.jsonl",
+                           f"point_cloud/iteration_{P_CLI_ITERS}/point_cloud.ply")
+               if (model / p).is_file()]
+    log("12b", f"cli.train --shard_gaussians 1 --device cuda (NCCL) on [{card}]: "
+               f"{P_CLI_ITERS} iterations in {wall:.2f} s with the rank's start, "
+               f"{finite_steps(model, 0)} finite logged steps, max logged overflow "
+               f"{max(r['overflow'] for r in steps)}, test PSNR {evals[-1]['psnr']:.3f} dB, one "
+               f"eval record {len(evals) == 1}; wrote {len(written)} of 6 files")
+    assert out is None and len(written) == 6 and len(evals) == 1
+    assert max(r["overflow"] for r in steps) == 0
+    log(12, f"launches fwd {launches['fwd']} bwd {launches['bwd']} (every rank); phase 12 "
+            f"took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # Main
 # ----------------------------------------------------------------------------
 
@@ -2555,6 +3095,11 @@ def main() -> int:
 
         # -- phase 11: view-parallel training ----------------------------------------
         for k, n in parallel_phase(torch, rt, dev, card, Path(tmp), sat, med).items():
+            launches[k] += n
+        torch.cuda.empty_cache()
+
+        # -- phase 12: gaussian-sharded training --------------------------------------
+        for k, n in gauss_phase(torch, rt, dev, card, Path(tmp), sat, med).items():
             launches[k] += n
 
     # No single PyTorch call composites depth-sorted splats: library_ms null.

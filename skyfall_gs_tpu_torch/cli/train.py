@@ -45,14 +45,18 @@ host, 0 one rank per host) and joins the pod at the coordinator.  Half a
 configuration raises ``RuntimeError``.  With ranks, ``main`` returns None
 once every rank has finished; a rank that fails fails the run.
 
-Not ported, raising ``NotImplementedError`` that names where the ROADMAP
-places it: ``--shard_gaussians`` (left out of the port: gaussian-sharded
-training).
+``--shard_gaussians N`` trains gaussian-sharded over N ranks instead
+(``Trainer(mesh_mode="gauss")``: each rank holds 1/N of the splat state and
+composites one depth bin of every view), spawned and counted as
+``--data_parallel``'s are; each rank writes its rows of the
+``chkpnt<it>.orbax`` checkpoints, rank 0 every other file.  It excludes
+``--data_parallel``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 import torch
@@ -112,21 +116,21 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def local_ranks(data_parallel: int, device: torch.device, pod) -> int:
-    """How many ranks this process starts: ``--data_parallel`` ranks (on a
-    pod, its share of them), every visible GPU for -1, one per host on a
-    pod without the flag."""
-    if data_parallel < 0:
+def local_ranks(n_ranks: int, device: torch.device, pod, flag: str = "--data_parallel") -> int:
+    """How many ranks this process starts: ``n_ranks`` (``flag``'s value;
+    on a pod, its share of them), every visible GPU for -1, one per host on
+    a pod without the flag."""
+    if n_ranks < 0:
         if device.type != "cuda":
-            raise SystemExit("--data_parallel -1 means every visible GPU; give a count "
+            raise SystemExit(f"{flag} -1 means every visible GPU; give a count "
                              f"with --device {device}")
         return torch.cuda.device_count()
-    if pod is None or data_parallel == 0:
-        return max(data_parallel, 1)
-    if data_parallel % pod[1]:
-        raise SystemExit(f"--data_parallel {data_parallel} does not divide over the "
+    if pod is None or n_ranks == 0:
+        return max(n_ranks, 1)
+    if n_ranks % pod[1]:
+        raise SystemExit(f"{flag} {n_ranks} does not divide over the "
                          f"pod's {pod[1]} processes")
-    return data_parallel // pod[1]
+    return n_ranks // pod[1]
 
 
 def main(argv=None):
@@ -144,28 +148,31 @@ def main(argv=None):
         parser.error("--source_path/-s and --model_path/-m are required")
     if pipe_cfg.data_parallel and pipe_cfg.shard_gaussians:
         raise SystemExit("--data_parallel and --shard_gaussians are mutually exclusive")
-    if pipe_cfg.shard_gaussians:
-        raise NotImplementedError("--shard_gaussians is not ported "
-                                  "(ROADMAP: left out of the port)")
     if args.iterative_datasets_update and not args.start_checkpoint:
         parser.error("--start_checkpoint is required for IDU")
     pod = pod_config()
     device = resolve_device(args.device)
-    if pipe_cfg.data_parallel or pod is not None:
-        n = local_ranks(pipe_cfg.data_parallel, device, pod)
-        print(f"view-parallel training: {n} local ranks on {device.type}"
+    if pipe_cfg.data_parallel or pipe_cfg.shard_gaussians or pod is not None:
+        mode, flag = (("gauss", "--shard_gaussians") if pipe_cfg.shard_gaussians
+                      else ("view", "--data_parallel"))
+        n = local_ranks(pipe_cfg.shard_gaussians or pipe_cfg.data_parallel, device, pod, flag)
+        print(f"{'gaussian-sharded' if mode == 'gauss' else 'view-parallel'} training: "
+              f"{n} local ranks on {device.type}"
               + (f", process {pod[2]} of a {pod[1]}-process pod" if pod else ""), flush=True)
-        launch(_rank_main, n, (argv,), device=device.type, pod=pod)
+        launch(_rank_main, n, (argv, mode), device=device.type, pod=pod)
         return None
     return _train(args, device)
 
 
-def _rank_main(mesh, argv: list) -> None:
-    """One rank of a view-parallel run (``launch``'s target)."""
-    _train(build_parser().parse_args(argv), mesh.device, mesh)
+def _rank_main(mesh, argv: list, mode: str = "view") -> None:
+    """One rank of a view-parallel or gaussian-sharded run (``launch``'s
+    target)."""
+    if mode == "gauss":
+        mesh = dataclasses.replace(mesh, axis="gauss")
+    _train(build_parser().parse_args(argv), mesh.device, mesh, mode)
 
 
-def _train(args, device: torch.device, mesh=None):
+def _train(args, device: torch.device, mesh=None, mesh_mode: str = "view"):
     model_cfg = extract_config(args, ModelConfig)
     pipe_cfg = extract_config(args, PipelineConfig)
     opt_cfg = extract_config(args, OptimizationConfig)
@@ -205,7 +212,8 @@ def _train(args, device: torch.device, mesh=None):
 
         gui = NetworkGUI(args.gui_ip, args.gui_port)
     trainer = Trainer(model_cfg, opt_cfg, pipe_cfg, scene, depth_predictor=depth_pred,
-                      rng_seed=args.seed, gui=gui, profile_dir=args.profile_dir, mesh=mesh)
+                      rng_seed=args.seed, gui=gui, profile_dir=args.profile_dir, mesh=mesh,
+                      mesh_mode=mesh_mode)
     if args.iterative_datasets_update:
         from skyfall_gs_tpu_torch.train.idu import IDUOrchestrator
 

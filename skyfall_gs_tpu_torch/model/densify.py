@@ -14,6 +14,14 @@ Port of ``skyfall_gs_tpu/model/densify.py``:
     resets it before the prune reads it) and so never fires; it is kept;
   * all densification statistics reset to zero afterwards.
 
+On a gaussian-sharded state (``mesh``, the ``gauss`` axis of
+``parallel/mesh.py``) the two global quantities go through collectives:
+the ``>= max_grad`` ratio by one all-reduce, the AbsGS quantile over one
+all-gather of every shard's ``grads_abs`` (dead rows gathered as -1).
+Selection, slot allocation, the clone / split writes, pruning and the Adam
+surgery stay local to the shard, so children land in their parent's
+shard, and the returned statistics are summed over the shards.
+
 Capacity is fixed: children are written into dead slots (dead slots in
 index order, clones first, then split pairs), children that find no free
 slot are dropped and counted in ``n_dropped``, Adam moments are zeroed at
@@ -145,11 +153,13 @@ def densify_and_prune(
     extent: float,
     max_screen_size: float,
     percent_dense: float,
+    mesh=None,
 ) -> DensifyStats:
     """One clone/split/prune pass, IN PLACE on ``params``, ``aux`` and the
     Adam moments.  The split offsets are N(0, 1) draws from ``generator``
     (one (C, 3) draw per child, first child first), scaled by the parent's
-    scale and rotated by its rotation.  Returns device-tensor statistics."""
+    scale and rotated by its rotation.  Returns device-tensor statistics.
+    With ``mesh`` the state is this rank's shard (module docstring)."""
     cap = params.capacity
     dev = params.xyz.device
     alive = aux.alive.clone()
@@ -158,10 +168,16 @@ def densify_and_prune(
     grads = torch.where(seen, aux.grad_accum / denom, 0.0)
     grads_abs = torch.where(seen, aux.grad_accum_abs / denom, 0.0)
 
-    n_alive0 = torch.sum(alive)
-    ratio = torch.sum((grads >= max_grad) & alive) / torch.clamp_min(n_alive0, 1)
-    q_thresh = _masked_quantile(grads_abs, alive, 1.0 - ratio)
-    q_thresh = torch.where(torch.sum(grads_abs) > 0.0, q_thresh, float("inf"))
+    counts = torch.stack([torch.sum((grads >= max_grad) & alive), torch.sum(alive)])
+    abs_all, alive_all = grads_abs, alive
+    if mesh is not None:
+        counts = mesh.all_reduce_(counts)
+        abs_all = mesh.all_gather(torch.where(alive, grads_abs, -1.0)).reshape(-1)
+        alive_all = abs_all >= 0.0
+        abs_all = torch.clamp_min(abs_all, 0.0)
+    ratio = counts[0] / torch.clamp_min(counts[1], 1)
+    q_thresh = _masked_quantile(abs_all, alive_all, 1.0 - ratio)
+    q_thresh = torch.where(torch.sum(abs_all) > 0.0, q_thresh, float("inf"))
 
     scaling = get_scaling(params)
     scale_max = torch.max(scaling, dim=1).values
@@ -239,8 +255,10 @@ def densify_and_prune(
         t.zero_()
 
     n_pruned = torch.sum(alive & prune_pred_parent) + torch.sum(split_mask & ~prune_pred_parent)
-    return DensifyStats(n_cloned=n_clone, n_split=n_split, n_pruned=n_pruned,
-                        n_dropped=n_dropped, n_alive=torch.sum(aux.alive))
+    stats = torch.stack([n_clone, n_split, n_pruned, n_dropped, torch.sum(aux.alive)])
+    if mesh is not None:
+        stats = mesh.all_reduce_(stats)
+    return DensifyStats(*stats.unbind())
 
 
 def write_children_filter(filter_3d, dest_clone, dest_s0, dest_s1):

@@ -199,13 +199,16 @@ def compute_3d_filter(
     cy_pix: torch.Tensor,       # (M,)
     widths: torch.Tensor,       # (M,) float
     heights: torch.Tensor,      # (M,) float
+    mesh=None,
 ) -> torch.Tensor:
     """Per-Gaussian 3D low-pass filter size (Mip-Splatting).
 
     filter = (min over covering cameras of camera-space z) / max focal *
     sqrt(0.2); points covered by no camera inherit the largest distance
     over covered live points (+-15% screen margin).  One camera at a time,
-    so memory stays O(C) for any number of cameras; no host sync.
+    so memory stays O(C) for any number of cameras; no host sync.  On a
+    gaussian-sharded state (``mesh``) that largest distance is the
+    shards' maximum.
     """
     distance = torch.full_like(xyz[:, 0], float("inf"))
     covered = torch.zeros_like(alive)
@@ -222,6 +225,8 @@ def compute_3d_filter(
         distance = torch.minimum(distance, torch.where(valid, zc, float("inf")))
         covered |= valid
     max_dist = torch.max(torch.where(covered & alive, distance, float("-inf")))
+    if mesh is not None:
+        max_dist = mesh.all_reduce_(max_dist.reshape(1), "max")[0]
     max_dist = torch.where(torch.isfinite(max_dist), max_dist, 1.0)
     distance = torch.where(covered, distance, max_dist)
     return distance / torch.max(focal_x) * (0.2 ** 0.5)

@@ -39,21 +39,28 @@ def measure_bin_capacity(
     cameras,
     kernel_size: float = 0.1,
     with_3d_filter: bool = True,
+    mesh=None,
 ) -> int:
     """Binning capacity for rendering ``cameras``: the worst view's measured
-    duplicated-entry count through ``capacity_for_entries``.  Reads one
-    count per camera back to the host."""
+    duplicated-entry count through ``capacity_for_entries``.  Reads the
+    counts back to the host once.  On a gaussian-sharded state (``mesh``)
+    a view's count is the sum over the shards: every splat of the view, so
+    no depth bin of it can hold more (one all-reduce of the counts)."""
     from skyfall_gs_tpu_torch.ops.binning import capacity_for_entries, count_entries
     from skyfall_gs_tpu_torch.ops.projection import project_gaussians
 
     scales, opac = _activated(state, with_3d_filter)
-    worst = 0
+    counts = []
     for cam in cameras:
         proj = project_gaussians(state.params.xyz, scales, state.params.rotation, opac,
                                  cam, kernel_size=kernel_size, mask=state.aux.alive)
-        worst = max(worst, int(count_entries(proj.mean2d, proj.radius, cam.height,
-                                             cam.width, radius_xy=proj.radius_xy)))
-    return capacity_for_entries(worst)
+        counts.append(count_entries(proj.mean2d, proj.radius, cam.height, cam.width,
+                                    radius_xy=proj.radius_xy))
+    counts = (torch.stack(counts) if counts
+              else torch.zeros(1, dtype=torch.int64, device=state.params.xyz.device))
+    if mesh is not None:
+        counts = mesh.all_reduce_(counts)
+    return capacity_for_entries(int(counts.max()))
 
 
 def compute_colors(state: GaussianModelState, camera: Camera, testing: bool = False,

@@ -41,17 +41,26 @@ def depth_pearson_loss(gt_depth: torch.Tensor, depth: torch.Tensor) -> torch.Ten
     return 1.0 - pearson_corr(gt_depth, depth)
 
 
+def _binary_entropy(opacity: torch.Tensor) -> torch.Tensor:
+    o = torch.clamp(opacity.reshape(-1), 1.0e-3, 1.0 - 1.0e-3)
+    return -(o * torch.log(o) + (1.0 - o) * torch.log(1.0 - o))
+
+
+def opacity_entropy_sum(opacity: torch.Tensor, alive: torch.Tensor):
+    """``(sum over alive entries of the binary entropy, alive count)``: the
+    two terms of :func:`opacity_entropy_loss`'s mean."""
+    alive = alive.reshape(-1)
+    return torch.sum(torch.where(alive, _binary_entropy(opacity), 0.0)), torch.sum(alive)
+
+
 def opacity_entropy_loss(opacity: torch.Tensor,
                          alive: torch.Tensor | None = None) -> torch.Tensor:
     """Binary entropy of the opacities (clamped to [1e-3, 1 - 1e-3]); with
     padded state only alive entries count toward the mean."""
-    o = torch.clamp(opacity.reshape(-1), 1.0e-3, 1.0 - 1.0e-3)
-    ent = -(o * torch.log(o) + (1.0 - o) * torch.log(1.0 - o))
     if alive is None:
-        return torch.mean(ent)
-    alive = alive.reshape(-1)
-    return (torch.sum(torch.where(alive, ent, 0.0))
-            / torch.clamp_min(torch.sum(alive), 1))
+        return torch.mean(_binary_entropy(opacity))
+    total, n = opacity_entropy_sum(opacity, alive)
+    return total / torch.clamp_min(n, 1)
 
 
 def photometric_loss(image: torch.Tensor, gt_image: torch.Tensor,

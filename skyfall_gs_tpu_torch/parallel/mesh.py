@@ -4,7 +4,7 @@ Port of ``skyfall_gs_tpu/parallel/mesh.py``.  JAX drives every device of a
 mesh from one controller; PyTorch runs one process per device under
 ``torch.distributed`` instead:
 
-  * a :class:`ViewMesh` is one rank's view of the ``data`` axis: its
+  * a :class:`ViewMesh` is one rank's view of one mesh axis: its
     process group, rank, size and device.  Every rank builds it with
     :func:`make_mesh`.  Backends: NCCL for CUDA (one process per visible
     GPU, rank r on ``cuda:r``), gloo for the CPU.  Every rank on one CUDA
@@ -19,6 +19,17 @@ mesh from one controller; PyTorch runs one process per device under
     emits for ``parallel/launcher.py``) onto a TCP rendezvous at the
     coordinator.  Each host's process starts one rank per local device:
     global rank = ``process_id * local + local_rank``.
+
+A mesh names its axis: ``"data"`` for the view axis, ``"gauss"`` for the
+splat-sharded one (``parallel/gauss_shard.py``).  :func:`grid_meshes` splits
+a world of B*G ranks into the (B, G) grid's column (``data``) and row
+(``gauss``) subgroups.  Two collectives carry autograd, for the gauss axis:
+
+  * :func:`all_gather_sum_grad`: an all-gather whose backward is a
+    reduce-scatter (sum), for inputs whose cotangent differs per rank;
+  * :func:`all_gather_replicated`: an all-gather whose backward takes the
+    rank's own slice, for outputs that feed a loss every rank computes
+    alike (so every rank holds the same cotangent).
 
 Every process group gets an explicit timeout (``DEFAULT_TIMEOUT_S``), so a
 rank that dies makes the others fail in bounded time.  Host work that runs
@@ -144,11 +155,13 @@ def multihost_slot_envs(hosts: List[str], coordinator_port: int = 8476) -> List[
 
 @dataclass
 class ViewMesh:
-    """One rank's view of a 1-D ``data`` mesh.
+    """One rank's view of a 1-D mesh axis (``"data"`` or ``"gauss"``).
 
     ``group`` carries the training collectives on ``device`` (NCCL, or
     gloo); ``host_group`` is a gloo group for host values (flags,
-    objects, host arrays) and for :meth:`on_main`'s heartbeat.
+    objects, host arrays) and for :meth:`on_main`'s heartbeat.  ``rank``
+    and ``size`` are the rank's place in the group and the group's size;
+    ``root`` is the global rank of the group's rank 0 (0 for the world).
     ``traffic`` counts the collectives on ``group`` and their bytes.
     """
 
@@ -159,6 +172,7 @@ class ViewMesh:
     device: torch.device
     backend: str
     axis: str = "data"
+    root: int = 0
     traffic: Dict[str, int] = field(default_factory=lambda: {"collectives": 0, "bytes": 0})
 
     @property
@@ -185,10 +199,11 @@ class ViewMesh:
             t.copy_(src)
         return t
 
-    def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``t`` on every rank, in place."""
         self._count(t)
         buf = self._on_group(t)
-        dist.broadcast(buf, src, group=self.group)
+        dist.broadcast(buf, self.root, group=self.group)
         if buf is not t:
             t.copy_(buf)
         return t
@@ -200,6 +215,20 @@ class ViewMesh:
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
         return torch.stack(parts).to(t.device)
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (size, ...) summed over the ranks, this rank's slice:
+        ``sum_r t_r[rank]``.  On gloo it all-reduces a host copy and
+        slices."""
+        self._count(t)
+        t = t.contiguous()
+        if self.backend == "gloo":
+            buf = t.cpu() if t.is_cuda else t.clone()
+            dist.all_reduce(buf, group=self.group)
+            return buf[self.rank].to(t.device)
+        out = torch.empty(t.shape[1:], dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, t, group=self.group)
+        return out
 
     def max_int(self, value: int) -> int:
         """The largest of every rank's ``value`` (a host int)."""
@@ -215,7 +244,7 @@ class ViewMesh:
     def broadcast_object(self, obj=None):
         """Rank 0's ``obj`` on every rank (pickled: host values only)."""
         box = [obj]
-        dist.broadcast_object_list(box, src=0, group=self.host_group)
+        dist.broadcast_object_list(box, src=self.root, group=self.host_group)
         return box[0]
 
     def broadcast_arrays(self, arrays: Optional[Sequence[np.ndarray]]) -> List[np.ndarray]:
@@ -229,7 +258,7 @@ class ViewMesh:
                 t = torch.from_numpy(np.ascontiguousarray(arrays[i]))
             else:
                 t = torch.from_numpy(np.empty(shape, np.dtype(dtype)))
-            dist.broadcast(t, 0, group=self.host_group)
+            dist.broadcast(t, self.root, group=self.host_group)
             out.append(t.numpy())
         return out
 
@@ -249,7 +278,7 @@ class ViewMesh:
         flag = torch.zeros(1, dtype=torch.int32)
         if self.rank != 0:
             while True:
-                dist.broadcast(flag, 0, group=self.host_group)
+                dist.broadcast(flag, self.root, group=self.host_group)
                 if int(flag) == _DONE:
                     return None
                 if int(flag) == _FAILED:
@@ -259,7 +288,7 @@ class ViewMesh:
 
         def heartbeat():
             while not done.wait(HEARTBEAT_S):
-                dist.broadcast(torch.tensor([_WORKING], dtype=torch.int32), 0,
+                dist.broadcast(torch.tensor([_WORKING], dtype=torch.int32), self.root,
                                group=self.host_group)
 
         beat = threading.Thread(target=heartbeat, daemon=True)
@@ -271,8 +300,48 @@ class ViewMesh:
         finally:
             done.set()
             beat.join()
-            dist.broadcast(torch.tensor([status], dtype=torch.int32), 0, group=self.host_group)
+            dist.broadcast(torch.tensor([status], dtype=torch.int32), self.root,
+                           group=self.host_group)
         return result
+
+
+class _GatherSumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.reduce_scatter(grad), None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.rank = mesh.rank
+        return mesh.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.rank], None
+
+
+def all_gather_sum_grad(x: torch.Tensor, mesh: ViewMesh) -> torch.Tensor:
+    """``(size, *x.shape)``, every rank's ``x``; the backward sums the
+    ranks' cotangents of this rank's slice (a reduce-scatter).  For inputs
+    each rank uses differently, such as the splat attributes of which rank
+    k composites only depth bin k."""
+    return _GatherSumGrad.apply(x, mesh)
+
+
+def all_gather_replicated(x: torch.Tensor, mesh: ViewMesh) -> torch.Tensor:
+    """``(size, *x.shape)``, every rank's ``x``; the backward takes this
+    rank's slice of the cotangent, with no collective.  Correct only where
+    every rank computes the same function of the result (a replicated
+    merge and loss), so every rank holds the same cotangent: summing them,
+    as a reduce-scatter would, counts the loss ``size`` times."""
+    return _GatherReplicated.apply(x, mesh)
 
 
 def _rank_device(device, rank: int) -> torch.device:
@@ -324,6 +393,31 @@ def make_mesh(
     host = dist.new_group(backend="gloo", timeout=_timeout(timeout_s))
     return ViewMesh(group=dist.group.WORLD, host_group=host, rank=rank, size=size,
                     device=dev, backend=have, axis=axis)
+
+
+def grid_meshes(world: ViewMesh, shape: Tuple[int, int]) -> Tuple[ViewMesh, ViewMesh]:
+    """Split a world of B*G ranks into the (B, G) grid's axes.  Global rank
+    ``d * G + g`` is view row ``d`` and splat shard ``g`` (JAX's
+    ``devices.reshape(B, G)``).  Returns ``(data, gauss)``: the column of B
+    ranks holding shard ``g`` (rank ``d`` in it) and the row of G ranks
+    rendering view ``d`` (rank ``g`` in it).  Every rank must call it: each
+    group is created collectively, in the same order everywhere."""
+    b, g = shape
+    if b * g != world.size:
+        raise ValueError(f"a ({b}, {g}) grid needs {b * g} ranks, the mesh has {world.size}")
+    timeout = _timeout(DEFAULT_TIMEOUT_S)
+    rows = [[d * g + j for j in range(g)] for d in range(b)]
+    cols = [[i * g + j for i in range(b)] for j in range(g)]
+    made = {}
+    for axis, sets in (("gauss", rows), ("data", cols)):
+        for ranks in sets:
+            grp = dist.new_group(ranks, backend=world.backend, timeout=timeout)
+            host = dist.new_group(ranks, backend="gloo", timeout=timeout)
+            if world.rank in ranks:
+                made[axis] = ViewMesh(group=grp, host_group=host, rank=ranks.index(world.rank),
+                                      size=len(ranks), device=world.device,
+                                      backend=world.backend, axis=axis, root=ranks[0])
+    return made["data"], made["gauss"]
 
 
 def _check_device(dev: torch.device, backend: str, n: int) -> None:

@@ -39,22 +39,30 @@ def _leaves(train_state: TrainState) -> list:
             for path, t in flat_fields(part)]
 
 
-def save_checkpoint(path: str, train_state: TrainState, iteration: int) -> None:
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    flat = {k: t.detach().cpu().numpy() for k, t in _leaves(train_state)}
-    flat["opt/count"] = np.asarray(train_state.opt.count, np.int32)
-    flat["step"] = np.asarray(train_state.step, np.int32)
+def _counters(train_state: TrainState) -> dict:
+    return {"opt/count": np.asarray(train_state.opt.count, np.int32),
+            "step": np.asarray(train_state.step, np.int32)}
+
+
+def _state_meta(train_state: TrainState, iteration: int, capacity: int) -> dict:
     model = train_state.model
     emb = model.params.appearance_embeddings
-    meta = {
+    return {
         "iteration": int(iteration),
         "active_sh_degree": model.active_sh_degree,
         "max_sh_degree": model.max_sh_degree,
         "appearance": list(model.appearance),
         "spatial_lr_scale": model.spatial_lr_scale,
-        "capacity": int(model.params.capacity),
+        "capacity": int(capacity),
         "num_cameras": int(emb.shape[0]) if emb is not None else 0,
     }
+
+
+def save_checkpoint(path: str, train_state: TrainState, iteration: int) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    flat = {k: t.detach().cpu().numpy() for k, t in _leaves(train_state)}
+    flat.update(_counters(train_state))
+    meta = _state_meta(train_state, iteration, train_state.model.params.capacity)
     np.savez_compressed(path, __meta__=json.dumps(meta), **flat)
 
 
@@ -68,19 +76,29 @@ def load_checkpoint(path: str, template: TrainState) -> Tuple[TrainState, int]:
         for key, t in _leaves(template):
             if key not in data.files:
                 continue
-            arr = data[key]
-            if tuple(arr.shape) != tuple(t.shape):
-                raise ValueError(f"{path}: {key} has shape {arr.shape}, the state "
-                                 f"{tuple(t.shape)}")
-            t.copy_(torch.from_numpy(arr).to(t.dtype))
-        if "opt/count" in data.files:
-            template.opt.count = int(data["opt/count"])
-        if "step" in data.files:
-            template.step = int(data["step"])
+            _copy_into(t, data[key], f"{path}: {key}")
+        _restore_counters(template, data)
+    _restore_meta(template, meta)
+    return template, meta["iteration"]
+
+
+def _copy_into(t: torch.Tensor, arr: np.ndarray, what: str) -> None:
+    if tuple(arr.shape) != tuple(t.shape):
+        raise ValueError(f"{what} has shape {arr.shape}, the state {tuple(t.shape)}")
+    t.copy_(torch.from_numpy(arr).to(t.dtype))
+
+
+def _restore_counters(template: TrainState, data) -> None:
+    if "opt/count" in data.files:
+        template.opt.count = int(data["opt/count"])
+    if "step" in data.files:
+        template.step = int(data["step"])
+
+
+def _restore_meta(template: TrainState, meta: dict) -> None:
     template.model = dataclasses.replace(
         template.model, active_sh_degree=meta["active_sh_degree"],
         max_sh_degree=meta["max_sh_degree"], spatial_lr_scale=meta["spatial_lr_scale"])
-    return template, meta["iteration"]
 
 
 def peek_checkpoint_meta(path: str) -> dict:

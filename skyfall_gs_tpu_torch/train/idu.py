@@ -52,8 +52,15 @@ The orbit cameras and every host draw are made on every rank from the same
 stream.  Pseudo views are replicated: every rank renders the same camera and
 runs the predictor on its own device.  Reports, the checkpoint and the PLY
 are rank 0's.  The JAX package's scan-fused episode windows are not ported
-(one B-view step per iteration, on the same draws), nor are its
-gauss-sharded episodes (ROADMAP: left out of the port).
+(one B-view step per iteration, on the same draws).
+
+On a gauss mesh (``Trainer(mesh_mode="gauss")``) every rank trains the
+same view each iteration with its shard of the splats; rank 0 renders the
+view set from the state gathered on every rank
+(``parallel.gauss_shard.gather_train_state``), as it writes the reports and
+the PLY; pseudo views are rendered by all the shards together; the
+episode's checkpoint is a ``chkpnt<it>.orbax`` directory every rank writes
+its rows into (``train/checkpoint_sharded.py``).
 """
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ from skyfall_gs_tpu_torch.io.scene import View, stack_views
 from skyfall_gs_tpu_torch.model.gaussians import camera_filter_arrays, reset_opacity
 from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
 from skyfall_gs_tpu_torch.train.checkpoint import save_checkpoint
+from skyfall_gs_tpu_torch.train.checkpoint_sharded import save_checkpoint_sharded
 from skyfall_gs_tpu_torch.train.loop import Trainer
 from skyfall_gs_tpu_torch.train.step import TrainState, make_eval_render
 from skyfall_gs_tpu_torch.utils.general import expon_lr_schedule
@@ -136,7 +144,7 @@ class IDUOrchestrator:
         if mesh is None:
             refined, depths = self._render_refine_write(state, cams, episode_tag)
         else:
-            out = mesh.on_main(self._render_refine_write, state, cams, episode_tag)
+            out = mesh.on_main(self._render_refine_write, t._full(state), cams, episode_tag)
             record = mesh.broadcast_object(self.episodes[-1] if mesh.is_main else None)
             if not mesh.is_main:
                 self.episodes.append(record)
@@ -236,9 +244,9 @@ class IDUOrchestrator:
                 if not idu_indices:
                     idu_indices.extend(range(idu_group.size))
                 i = idu_indices.pop(t.py_rng.randrange(len(idu_indices)))
-                if t.mesh is not None:
+                if t._mesh_B:
                     i = [i] + [t.py_rng.randrange(idu_group.size)
-                               for _ in range(t.mesh.size - 1)]
+                               for _ in range(t._mesh_B - 1)]
                 return True, idu_group, i
             g, i = t._pick_step()
             return False, g, i
@@ -270,8 +278,7 @@ class IDUOrchestrator:
                 pseudo = t._pseudo_inputs(state, pcam, self.depth_predictor, 1.0)
             cam, image, mask, depth = g.select(t._own(i))
             if not t.pipe_cfg.bin_capacity:
-                t.bin_capacity = max(t.bin_capacity, t._mesh_max(measure_bin_capacity(
-                    state.model, [cam], kernel_size=cfg.kernel_size)))
+                t.bin_capacity = max(t.bin_capacity, t._measure(state.model, [cam]))
                 max_capacity = max(max_capacity, t.bin_capacity)
             # IDU views: the depth term, and the photometric one with
             # idu_refine; original views: the photometric term only.
@@ -301,9 +308,10 @@ class IDUOrchestrator:
 
             if t.logger:
                 t.logger.log_step(iteration, metrics, 0.0)
-            if t.rank == 0 and (iteration % o.idu_testing_interval == 0
-                                or iteration == end_iter):
-                t._report(state, iteration)
+            if iteration % o.idu_testing_interval == 0 or iteration == end_iter:
+                full = t._full(state)
+                if t.rank == 0:
+                    t._report(full, iteration)
 
         sync()
         self.episodes[-1].update(views_s=t1 - t0, train_s=time.perf_counter() - t1,
@@ -311,10 +319,14 @@ class IDUOrchestrator:
         self.max_overflow = max(self.max_overflow, int(t.max_overflow))
         if t.logger:
             t.logger.flush()
+        path = os.path.join(cfg.model_path, f"chkpnt{end_iter}")
+        if t._gauss is not None:
+            save_checkpoint_sharded(path + ".orbax", state, end_iter, t._gauss)
+        elif t.rank == 0:
+            save_checkpoint(path + ".npz", state, end_iter)
+        full = t._full(state)
         if t.rank == 0:
-            save_checkpoint(os.path.join(cfg.model_path, f"chkpnt{end_iter}.npz"), state,
-                            end_iter)
-            t.save_ply(state, end_iter)
+            t.save_ply(full, end_iter)
         return state
 
     # ------------------------------------------------------------------

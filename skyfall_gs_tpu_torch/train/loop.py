@@ -51,6 +51,23 @@ comes from a per-rank generator (rank 0's is seeded as the single-device
 Trainer's, the counterpart of JAX's ``fold_in(key, axis_index)``).  Logs,
 reports, PLYs and checkpoints are written by rank 0 alone; a viewer is
 polled on rank 0 while the other ranks wait (a pause holds every rank).
+
+Gaussian-sharded training (``mesh_mode="gauss"``): each rank holds a row
+shard of the splat state (``parallel.gauss_shard``) and every iteration is
+one view rendered by all of them, each compositing one depth bin.  Every
+rank makes the same host draws and trains the same view.  The conventions
+flip from the view mesh: the ray jitter is the same on every rank (each
+composites a bin of the same image), and densify's split draws differ per
+rank (rank 0's seeded as the single-device Trainer's, the counterpart of
+JAX's ``fold_in(rng, axis_index)``).  The capacity is rounded up to a
+multiple of the mesh size and sharded at ``init_state``; a binning
+capacity is measured over every shard's splats; the 3D filter, densify's
+ratio and quantile, and capacity growth (pad slots spread evenly) run on
+the shards with collectives.  Checkpoints are ``chkpnt<it>.orbax``
+directories that every rank writes its rows into
+(``train/checkpoint_sharded.py``); test renders, PLYs and a viewer's frames
+come from the state gathered on every rank (``gather_train_state``) and
+are rank 0's.
 """
 
 from __future__ import annotations
@@ -81,12 +98,24 @@ from skyfall_gs_tpu_torch.model.gaussians import (
 )
 from skyfall_gs_tpu_torch.model.render import measure_bin_capacity, render
 from skyfall_gs_tpu_torch.ops.losses import psnr as psnr_fn
+from skyfall_gs_tpu_torch.parallel.gauss_shard import (
+    gather_train_state,
+    make_gauss_sharded_train_step,
+    shard_train_state,
+    sharded_grow_capacity,
+    sharded_render,
+)
 from skyfall_gs_tpu_torch.parallel.mesh import ViewMesh
 from skyfall_gs_tpu_torch.parallel.sharding import broadcast_state_, make_parallel_train_step
 from skyfall_gs_tpu_torch.train.checkpoint import (
     load_checkpoint,
     peek_checkpoint_meta,
     save_checkpoint,
+)
+from skyfall_gs_tpu_torch.train.checkpoint_sharded import (
+    load_checkpoint_sharded,
+    peek_checkpoint_meta_sharded,
+    save_checkpoint_sharded,
 )
 from skyfall_gs_tpu_torch.train.logging import MetricsLogger
 from skyfall_gs_tpu_torch.train.step import (
@@ -117,12 +146,11 @@ class Trainer:
     iteration; its frames are rendered at a binning capacity measured for
     the request's camera, again whenever a frame overflows.
 
-    ``mesh`` (a ``parallel.mesh.ViewMesh``) trains view-parallel (module
-    docstring); the scene must lie on the mesh's device.
-
-    Not ported, each raising ``NotImplementedError`` that names where the
-    ROADMAP places it: ``mesh_mode="gauss"`` and ``.orbax`` checkpoints
-    (left out of the port: gaussian-sharded training).
+    ``mesh`` (a ``parallel.mesh.ViewMesh``) trains view-parallel with
+    ``mesh_mode="view"`` and gaussian-sharded with ``"gauss"`` (module
+    docstring); the scene must lie on the mesh's device.  A
+    ``start_checkpoint`` is a ``.npz`` file or a sharded ``.orbax``
+    directory, restored into either mode.
     """
 
     model_cfg: ModelConfig
@@ -140,13 +168,13 @@ class Trainer:
 
     def __post_init__(self):
         cfg, o = self.model_cfg, self.opt_cfg
-        if self.mesh is not None and self.mesh_mode != "view":
-            raise NotImplementedError(
-                f"mesh_mode={self.mesh_mode!r} (gaussian-sharded training) is not ported "
-                "(ROADMAP: left out of the port)")
+        if self.mesh_mode not in ("view", "gauss"):
+            raise ValueError(f"mesh_mode {self.mesh_mode!r}: 'view' or 'gauss'")
         self.device = torch.device(self.scene.device)
         self.rank = self.mesh.rank if self.mesh is not None else 0
-        self._mesh_B = self.mesh.size if self.mesh is not None else 0
+        # The gauss mesh, or None; B views per step on a view mesh, else 0.
+        self._gauss = self.mesh if self.mesh_mode == "gauss" else None
+        self._mesh_B = self.mesh.size if self.mesh is not None and self._gauss is None else 0
         if self.mesh is not None and torch.device(self.mesh.device) != self.device:
             raise ValueError(f"the scene lies on {self.device}, the mesh rank on "
                              f"{self.mesh.device}")
@@ -158,12 +186,16 @@ class Trainer:
         self.bg = torch.tensor([1.0, 1.0, 1.0] if cfg.white_background else [0.0, 0.0, 0.0],
                                device=self.device)
         self.py_rng = random.Random(self.rng_seed)
-        # Ray-jitter draws, per rank; densify's split offsets, alike on
-        # every rank.
+        # Ray-jitter draws: per rank on a view mesh, alike on a gauss mesh.
+        # Densify's split offsets: alike on a view mesh, per rank on a gauss
+        # mesh.  Rank 0's are the single-device Trainer's either way.
+        per_rank = self.rank != 0
         self.generator = torch.Generator(device=self.device).manual_seed(
-            self.rng_seed if self.rank == 0 else stream_seed(self.rng_seed, 1, self.rank))
+            stream_seed(self.rng_seed, 1, self.rank) if per_rank and self._mesh_B
+            else self.rng_seed)
         self.split_generator = torch.Generator(device=self.device).manual_seed(
-            stream_seed(self.rng_seed, 2))
+            stream_seed(self.rng_seed, 2, self.rank) if per_rank and self._gauss is not None
+            else stream_seed(self.rng_seed, 2))
         self._step_fns = {}
         self._pick_pushbacks = []
         self.bin_capacity = int(self.pipe_cfg.bin_capacity) or None
@@ -191,24 +223,53 @@ class Trainer:
             capacity=cap, seed=self.rng_seed, device=self.device)
         state = init_train_state(model)
         self.start_iteration = 0
+        sharded = ckpt_cap = None
         if start_checkpoint:
-            if start_checkpoint.endswith(".orbax") or os.path.isdir(start_checkpoint):
-                raise NotImplementedError("sharded .orbax checkpoints are not ported "
-                                          "(ROADMAP: left out of the port)")
-            meta = peek_checkpoint_meta(start_checkpoint)
-            if meta["capacity"] != model.params.capacity:
-                state.model, state.opt = grow_capacity(state.model, state.opt,
-                                                       meta["capacity"])
-            state, self.start_iteration = load_checkpoint(start_checkpoint, state)
+            sharded = start_checkpoint.endswith(".orbax") or os.path.isdir(start_checkpoint)
+            ckpt_cap = (peek_checkpoint_meta_sharded if sharded
+                        else peek_checkpoint_meta)(start_checkpoint)["capacity"]
+        if self._gauss is not None:
+            return self._init_shard(state, start_checkpoint, sharded, ckpt_cap)
+        if start_checkpoint:
+            if ckpt_cap != model.params.capacity:
+                state.model, state.opt = grow_capacity(state.model, state.opt, ckpt_cap)
+            load = load_checkpoint_sharded if sharded else load_checkpoint
+            state, self.start_iteration = load(start_checkpoint, state)
         if self.mesh is not None:
             broadcast_state_(state, self.mesh)
+        self._refresh_filter(state)
+        return state
+
+    def _init_shard(self, state: TrainState, ckpt: Optional[str], sharded: bool,
+                    cap: Optional[int]) -> TrainState:
+        """This rank's shard of the initial state on a gauss mesh.  A
+        sharded checkpoint restores into shards of the fresh state grown to
+        its capacity, so no rank holds the full capacity; a ``.npz`` one
+        loads whole and is sharded after.  The capacity is rounded up to a
+        multiple of the mesh size."""
+        mesh = self._gauss
+        g = mesh.size
+        if sharded and cap % g:
+            raise ValueError(f"sharded checkpoint capacity {cap} is not divisible by the "
+                             f"{g}-shard gauss mesh; restore on a mesh size that divides it")
+        if ckpt and not sharded:
+            if cap != state.model.params.capacity:
+                state.model, state.opt = grow_capacity(state.model, state.opt, cap)
+            state, self.start_iteration = load_checkpoint(ckpt, state)
+        n = state.model.params.capacity
+        if n % g:
+            state.model, state.opt = grow_capacity(state.model, state.opt, -(-n // g) * g)
+        state = shard_train_state(state, mesh)
+        if sharded:
+            state = sharded_grow_capacity(state, mesh, cap)
+            state, self.start_iteration = load_checkpoint_sharded(ckpt, state, mesh)
         self._refresh_filter(state)
         return state
 
     def _refresh_filter(self, state: TrainState) -> None:
         m = state.model
         m.aux.filter_3d.copy_(compute_3d_filter(m.params.xyz, m.aux.alive,
-                                                *self.filter_cams))
+                                                *self.filter_cams, mesh=self._gauss))
 
     # ------------------------------------------------------------------
     def _get_step_fn(self, use_depth: bool, use_pseudo: bool = False,
@@ -219,8 +280,11 @@ class Trainer:
         lpips_fn = self._get_lpips().score if self.opt_cfg.use_lpips_loss else None
         key = (use_depth, use_pseudo, photometric, testing_render, self.bin_capacity, lpips_fn)
         if key not in self._step_fns:
-            build = (make_train_step if self.mesh is None
-                     else functools.partial(make_parallel_train_step, self.mesh))
+            if self.mesh is None:
+                build = make_train_step
+            else:
+                build = functools.partial(make_gauss_sharded_train_step if self._gauss
+                                          else make_parallel_train_step, self.mesh)
             self._step_fns[key] = build(
                 self.opt_cfg, kernel_size=self.model_cfg.kernel_size,
                 backend=self.pipe_cfg.rasterizer_backend,
@@ -248,9 +312,8 @@ class Trainer:
         if self.pipe_cfg.bin_capacity:
             self.bin_capacity = int(self.pipe_cfg.bin_capacity)
             return
-        self.bin_capacity = self._mesh_max(measure_bin_capacity(
-            state.model, [c for g in self.scene.train_groups.values() for c in g.cameras],
-            kernel_size=self.model_cfg.kernel_size))
+        self.bin_capacity = self._measure(
+            state.model, [c for g in self.scene.train_groups.values() for c in g.cameras])
         # Eval capacities were measured against the old splat set.
         self._eval_caps.clear()
 
@@ -265,10 +328,18 @@ class Trainer:
                                 self.pipe_cfg.rasterizer_backend,
                                 bin_capacity=self._eval_caps[key])(model, camera, bg)
 
-    def _mesh_max(self, capacity: int) -> int:
-        """A measured binning capacity, the ranks' maximum on a mesh (so no
-        rank bins differently)."""
-        return capacity if self.mesh is None else self.mesh.max_int(capacity)
+    def _measure(self, model, cameras) -> int:
+        """A training step's binning capacity for ``cameras``: on a view
+        mesh the ranks' maximum (so no rank bins differently), on a gauss
+        mesh over every shard's splats (the same on every rank)."""
+        cap = measure_bin_capacity(model, cameras, kernel_size=self.model_cfg.kernel_size,
+                                   mesh=self._gauss)
+        return self.mesh.max_int(cap) if self._mesh_B else cap
+
+    def _full(self, state: TrainState) -> TrainState:
+        """The whole state: gathered from the shards on a gauss mesh (a
+        collective: every rank calls it), ``state`` itself otherwise."""
+        return state if self._gauss is None else gather_train_state(state, self._gauss)
 
     def _push_back_pick(self, pick) -> None:
         """Return an unconsumed pick to the front of the stream."""
@@ -280,13 +351,13 @@ class Trainer:
         draws it and the other B-1 uniformly from the lead's group (iid,
         with replacement), the whole row at once."""
         g, i = self._pick_view()
-        if self.mesh is None or isinstance(i, list):
+        if not self._mesh_B or isinstance(i, list):
             return g, i
         return g, [i] + [self.py_rng.randrange(g.size) for _ in range(self._mesh_B - 1)]
 
     def _own(self, i):
         """This rank's column of a pick (the pick itself on one device)."""
-        return i if self.mesh is None else i[self.rank]
+        return i[self.rank] if self._mesh_B else i
 
     def _pick_view(self):
         if self._pick_pushbacks:
@@ -331,11 +402,18 @@ class Trainer:
     def _pseudo_inputs(self, state: TrainState, camera: Camera, predictor,
                        scale: float) -> dict:
         """The step's ``pseudo_*`` arguments for ``camera``: its render (at a
-        capacity measured for it) through ``predictor`` on the host."""
-        cap = measure_bin_capacity(state.model, [camera],
-                                   kernel_size=self.model_cfg.kernel_size)
-        out = make_eval_render(self.model_cfg.kernel_size, self.pipe_cfg.rasterizer_backend,
-                               bin_capacity=cap)(state.model, camera, self.bg)
+        capacity measured for it) through ``predictor`` on the host.  On a
+        gauss mesh every rank renders it with the shards and runs the
+        predictor."""
+        ks = self.model_cfg.kernel_size
+        cap = measure_bin_capacity(state.model, [camera], kernel_size=ks, mesh=self._gauss)
+        if self._gauss is None:
+            out = make_eval_render(ks, self.pipe_cfg.rasterizer_backend,
+                                   bin_capacity=cap)(state.model, camera, self.bg)
+        else:
+            with torch.no_grad():
+                out = sharded_render(self._gauss, state.model, camera, self.bg, kernel_size=ks,
+                                     testing=True, bin_capacity=cap, inference=True)
         depth = predictor(torch.clamp(out.color, 0.0, 1.0).cpu().numpy())
         return {"pseudo_camera": camera,
                 "pseudo_gt_depth": torch.as_tensor(np.asarray(depth, np.float32),
@@ -373,7 +451,7 @@ class Trainer:
 
         for iteration in range(first_iter, iterations + 1):
             if use_gui:
-                self._on_main(self._poll_gui, state, iteration < iterations)
+                self._on_main(self._poll_gui, self._full(state), iteration < iterations)
             if cooldown is not None:
                 if cooldown > 0:
                     cooldown -= 1
@@ -430,21 +508,32 @@ class Trainer:
                 prof = None
             if self.logger:
                 self.logger.log_step(iteration, metrics, time.time() - t_start)
+            if iteration in checkpoint_iterations:
+                self._save_checkpoint(state, iteration)
+            if iteration not in test_iterations and iteration not in save_iterations:
+                continue
+            full = self._full(state)
             if self.rank != 0:
                 continue
             if iteration in test_iterations:
-                self._report(state, iteration)
+                self._report(full, iteration)
             if iteration in save_iterations:
-                self.save_ply(state, iteration)
-            if iteration in checkpoint_iterations:
-                save_checkpoint(os.path.join(cfg.model_path, f"chkpnt{iteration}.npz"),
-                                state, iteration)
+                self.save_ply(full, iteration)
 
         if prof is not None:
             prof.stop()
         if self.logger:
             self.logger.flush()
         return state
+
+    def _save_checkpoint(self, state: TrainState, iteration: int) -> None:
+        """``chkpnt<it>.orbax``, every rank writing its rows, on a gauss
+        mesh; ``chkpnt<it>.npz`` from rank 0 otherwise."""
+        path = os.path.join(self.model_cfg.model_path, f"chkpnt{iteration}")
+        if self._gauss is not None:
+            save_checkpoint_sharded(path + ".orbax", state, iteration, self._gauss)
+        elif self.rank == 0:
+            save_checkpoint(path + ".npz", state, iteration)
 
     def _has_gui(self) -> bool:
         """Whether a viewer is polled: on a mesh, whether rank 0 has one."""
@@ -504,17 +593,26 @@ class Trainer:
         o = self.opt_cfg
         # Grow capacity host-side before the pass: a worst-case pass adds up
         # to 2 children per live splat, and dropped children permanently
-        # lose their (killed) split parents — so keep free >= n_alive.
-        n_alive = int(state.model.num_alive)
-        cap = state.model.params.capacity
+        # lose their (killed) split parents — so keep free >= n_alive.  On
+        # a gauss mesh the counts are global and the new capacity a
+        # multiple of the mesh size, its pads spread evenly over the shards.
+        mesh = self._gauss
+        g = 1 if mesh is None else mesh.size
+        n_alive = state.model.num_alive
+        n_alive = int(n_alive if mesh is None else mesh.all_reduce_(n_alive.reshape(1))[0])
+        cap = state.model.params.capacity * g
         if cap - n_alive < max(n_alive, 2048):
             new_cap = max(cap * 2, -(-(2 * n_alive + 2048) // 1024) * 1024)
-            state.model, state.opt = grow_capacity(state.model, state.opt, new_cap)
+            if mesh is None:
+                state.model, state.opt = grow_capacity(state.model, state.opt, new_cap)
+            else:
+                state = sharded_grow_capacity(state, mesh, -(-new_cap // g) * g)
         stats = densify_and_prune(
             state.model.params, state.model.aux, state.opt, self.split_generator,
             max_grad=o.densify_grad_threshold, min_opacity=0.005,
             extent=float(self.scene.cameras_extent),
-            max_screen_size=float(o.size_threshold), percent_dense=o.percent_dense)
+            max_screen_size=float(o.size_threshold), percent_dense=o.percent_dense,
+            mesh=mesh)
         self._refresh_filter(state)
         if self.logger:
             self.logger.log_densify(state.step, stats)

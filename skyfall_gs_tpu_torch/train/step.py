@@ -99,11 +99,16 @@ def _build_grads_fn(
     testing_render: bool = False,
     bin_capacity: Optional[int] = None,
     lpips_fn: Optional[Callable] = None,
+    render_fn: Optional[Callable] = None,
+    entropy_fn: Optional[Callable] = None,
 ):
     """Build the per-view loss/gradient core: everything from render
     through the backward, but not the optimizer update or the
     densification statistics (the view-parallel step combines those over
-    the mesh in between).
+    the mesh in between).  ``render_fn`` (default ``model.render.render``)
+    and ``entropy_fn`` (default ``opacity_entropy_loss``) are where the
+    gaussian-sharded step (``parallel/gauss_shard.py``) puts its sharded
+    render and its entropy over every shard.
 
     Signature:
         grads(model, camera, gt_image (H,W,3), gt_mask (H,W), gt_depth (H,W),
@@ -127,6 +132,9 @@ def _build_grads_fn(
     The gradients cover every present parameter leaf, the appearance MLP
     and embeddings included.
     """
+
+    draw = render if render_fn is None else render_fn
+    entropy = opacity_entropy_loss if entropy_fn is None else entropy_fn
 
     def grads_fn(model: GaussianModelState, camera: Camera, gt_image, gt_mask,
                  gt_depth, bg, lambda_opacity: float,
@@ -152,12 +160,12 @@ def _build_grads_fn(
         abs_dummy = torch.zeros((cap, 2), device=dev, requires_grad=True)
 
         m = dataclasses.replace(model, params=leaves)
-        out = render(m, camera, bg, kernel_size=kernel_size, subpixel_offset=subpix,
-                     mean2d_dummy=dummy, mean2d_abs_dummy=abs_dummy,
-                     backend=backend, testing=testing_render,
-                     bin_capacity=bin_capacity,
-                     # the normal channel is not part of any training loss
-                     with_normals=False)
+        out = draw(m, camera, bg, kernel_size=kernel_size, subpixel_offset=subpix,
+                   mean2d_dummy=dummy, mean2d_abs_dummy=abs_dummy,
+                   backend=backend, testing=testing_render,
+                   bin_capacity=bin_capacity,
+                   # the normal channel is not part of any training loss
+                   with_normals=False)
         image = out.color * gt_mask[..., None]
         gt = gt_image * gt_mask[..., None]
         if resample_gt and subpix is not None:
@@ -176,12 +184,12 @@ def _build_grads_fn(
         if use_depth and opt_cfg.lambda_depth > 0:
             d_loss = depth_pearson_loss(gt_depth * gt_mask, out.depth * gt_mask)
             total = total + opt_cfg.lambda_depth * d_loss
-        o_loss = opacity_entropy_loss(get_opacity(leaves), model.aux.alive)
+        o_loss = entropy(get_opacity(leaves), model.aux.alive)
         total = total + lambda_opacity * o_loss
         overflow = out.overflow
         if use_pseudo:
-            pout = render(m, pseudo_camera, bg, kernel_size=kernel_size, backend=backend,
-                          bin_capacity=pseudo_bin_capacity, with_normals=False)
+            pout = draw(m, pseudo_camera, bg, kernel_size=kernel_size, backend=backend,
+                        bin_capacity=pseudo_bin_capacity, with_normals=False)
             pd = depth_pearson_loss(pseudo_gt_depth, pout.depth)
             pd = torch.where(torch.isnan(pd), torch.zeros_like(pd), pd)
             total = total + pseudo_scale * opt_cfg.lambda_pseudo_depth * pd
@@ -231,7 +239,14 @@ def make_train_step(opt_cfg, **kwargs):
     ``pseudo`` holds the grads function's ``pseudo_*`` arguments when built
     with ``use_pseudo``.  ``state`` is updated in place and returned.
     """
-    grads_fn = _build_grads_fn(opt_cfg, **kwargs)
+    return step_from_grads(_build_grads_fn(opt_cfg, **kwargs), opt_cfg)
+
+
+def step_from_grads(grads_fn, opt_cfg, count_alive: Callable = torch.sum):
+    """The training step around a grads function (:func:`_build_grads_fn`'s
+    signature): densification statistics, then Adam.  ``count_alive`` maps
+    the alive mask to the metrics' ``n_alive`` (the gaussian-sharded step
+    sums it over the shards)."""
 
     def step(state: TrainState, camera: Camera, gt_image, gt_mask, gt_depth, bg,
              xyz_lr: float, lambda_opacity: float,
@@ -250,7 +265,7 @@ def make_train_step(opt_cfg, **kwargs):
             depth_loss=aux["depth_loss"],
             opacity_loss=aux["opacity_loss"],
             psnr=aux["psnr"],
-            n_alive=torch.sum(model.aux.alive),
+            n_alive=count_alive(model.aux.alive),
             overflow=aux["overflow"],
         )
         return state, metrics

@@ -217,7 +217,7 @@ def test_ges_path_matches_jax(tmp_path):
 @pytest.mark.parametrize("flags, where", [
     (["--gui_port"], None),
     (["--data_parallel", "2"], None),
-    (["--shard_gaussians", "-1"], "ROADMAP: left out of the port"),
+    (["--shard_gaussians", "-1"], "means every visible GPU"),
     ([], "partial multi-host"),          # with half a multi-host environment
 ], ids=["gui_port", "data_parallel", "shard_gaussians", "multi_host"])
 def test_unported_options_raise(chain, tmp_path, monkeypatch, flags, where):
@@ -266,7 +266,9 @@ def test_unported_options_raise(chain, tmp_path, monkeypatch, flags, where):
             train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), "--device", "cpu"])
         assert not (tmp_path / "m").exists()
         return
-    with pytest.raises(NotImplementedError, match=f"not ported \\({where}\\)"):
+    # Ported: --shard_gaussians N trains on N ranks; -1 (every visible GPU)
+    # needs a CUDA device and exits on the CPU before anything is written.
+    with pytest.raises(SystemExit, match=where):
         train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), "--device", "cpu"]
                        + flags)
     assert not (tmp_path / "m").exists()

@@ -258,8 +258,8 @@ def test_unported_options_raise(scenes, tmp_path, case):
     _, tscene, _ = scenes
     kw, opt = {}, {}
     if case == "mesh":
-        # Ported: a 1-rank gloo view mesh trains; the gaussian-sharded mode
-        # is still left out.
+        # Ported: a 1-rank gloo mesh trains view-parallel and gaussian-sharded;
+        # another mode raises.
         import torch.distributed as dist
         from skyfall_gs_tpu_torch.parallel.mesh import make_mesh
 
@@ -268,14 +268,19 @@ def test_unported_options_raise(scenes, tmp_path, case):
         try:
             tr = TTrainer(model_cfg(tmp_path), opt_cfg(), PipelineConfig(), tscene, mesh=mesh)
             state = tr.train(tr.init_state(), iterations=2)
-            with pytest.raises(NotImplementedError, match="ROADMAP: left out of the port"):
+            tg_ = TTrainer(model_cfg(tmp_path), opt_cfg(), PipelineConfig(), tscene, mesh=mesh,
+                           mesh_mode="gauss")
+            gstate = tg_.train(tg_.init_state(), iterations=2)
+            with pytest.raises(ValueError, match="'view' or 'gauss'"):
                 TTrainer(model_cfg(tmp_path), opt_cfg(), PipelineConfig(), tscene, mesh=mesh,
-                         mesh_mode="gauss")
+                         mesh_mode="grid")
         finally:
             dist.destroy_process_group()
         assert state.step == 2 and tr._mesh_B == 1
-        for _, v in tg.flat_fields(state.model.params):
-            assert torch.isfinite(v).all()
+        assert gstate.step == 2 and tg_._mesh_B == 0 and tg_._gauss is mesh
+        for s in (state, gstate):
+            for _, v in tg.flat_fields(s.model.params):
+                assert torch.isfinite(v).all()
         return
     elif case == "gui":
         # Ported: the Trainer takes a listening NetworkGUI.
@@ -297,9 +302,20 @@ def test_unported_options_raise(scenes, tmp_path, case):
         with pytest.raises(RuntimeError, match="unavailable locally"):
             tr._get_step_fn(use_depth=True)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tr = TTrainer(model_cfg(tmp_path), opt_cfg(**opt), PipelineConfig(), tscene, **kw)
-        tr.init_state(start_checkpoint=str(tmp_path / "ckpt.orbax"))
+    # Ported: a sharded .orbax checkpoint (here written whole) resumes; a
+    # path that holds none raises.
+    from skyfall_gs_tpu_torch.train.checkpoint_sharded import save_checkpoint_sharded
+
+    tr = TTrainer(model_cfg(tmp_path), opt_cfg(**opt), PipelineConfig(), tscene, **kw)
+    state = tr.train(tr.init_state(), iterations=2)
+    save_checkpoint_sharded(str(tmp_path / "chkpnt2.orbax"), state, 2)
+    tr2 = TTrainer(model_cfg(tmp_path), opt_cfg(**opt), PipelineConfig(), tscene, **kw)
+    resumed = tr2.init_state(start_checkpoint=str(tmp_path / "chkpnt2.orbax"))
+    assert tr2.start_iteration == 2 and resumed.step == 2
+    assert torch.equal(resumed.model.params.xyz, state.model.params.xyz)
+    assert torch.equal(resumed.opt.nu.scaling, state.opt.nu.scaling)
+    with pytest.raises(FileNotFoundError, match="no sharded checkpoint"):
+        tr2.init_state(start_checkpoint=str(tmp_path / "ckpt.orbax"))
 
 
 def test_metrics_logger_writes_the_jax_records(tmp_path):
