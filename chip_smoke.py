@@ -125,12 +125,26 @@ Phases, one line each:
      state), one IDU episode from phase 6's checkpoint (2 views at 1024^2,
      100 iterations, overflow 0) and ``cli.train --shard_gaussians 1``
      (NCCL); (12c) one (2, 2) grid step on four gloo ranks held against the
-     two views' 2-bin steps averaged, then 5 steps timed.
+     two views' 2-bin steps averaged, then 5 steps timed;
+ 13. tensor-parallel FLUX (``priors/flux_shard.py``; 8b hands over host
+     copies of its frames, tokens, target conditioning, velocity and
+     refined frames, and frees its model first): on two gloo ranks sharing
+     cuda:0 in one launch, (13a) the sharded fp32 velocity at full width on
+     a 2 + 2-block model against the whole one of the same seed (rel norm
+     1e-5), then FLUX.1-dev in bf16 built shard by shard from seed 0 against
+     8b's velocity (3e-2), the ranks' velocities bit-equal, parameter and
+     peak GiB per rank, ms per 2-image evaluation and its collectives alone,
+     their count and bytes against the computed ones; (13b)
+     ``build_flux_refiner(mesh=...)`` FlowEdit n_max 2 of 28 on 8b's frames
+     (bit-equal across ranks, 3e-2 of 8b's); (13c) 12b's IDU episode with
+     ``idu_refine`` on those shards and MoGe on rank 0 (overflow 0, refined
+     views bit-equal across ranks); then 13a on NCCL at world size
+     min(device_count, 2).
 Each measurement line carries the card's name and power limit.  The last
 three lines before the final one are a summary of the kernels at the bench
 shape (time, bound, share of it, plain version, launches, ptxas), their
 JSON record (launches counted over phases 3, 5, 6, 7, 8a, 8d, 9, 10a-10c
-and every rank of 11 and 12; 10d's jobs run in subprocesses and are not counted) and the
+and every rank of 11, 12 and 13c; 10d's jobs run in subprocesses and are not counted) and the
 card's name and power limit; the final line is the JSON result.  Any failure
 raises, and the script exits non-zero without a result.  There is no CPU path.
 """
@@ -327,6 +341,17 @@ P_BAND_MAX, P_BAND_MEAN = 6e-2, 5e-3   # tests/test_train.py:290-311's band boun
 G_SINGLE_RATIO = 0.02
 G_STEPS = 20
 G_GRID_STEPS = 5
+
+# Phase 13: tensor-parallel FLUX.  13a-13c on two gloo ranks sharing cuda:0
+# (one launch: the shards are built once), 13a also on NCCL at world size
+# min(device_count, 2).  13a holds the sharded fp32 velocity at full width
+# on a TP_CUT-deep model to TP_FP32_REL of the whole one (two summation
+# orders of the row-parallel layers), and FLUX.1-dev in bf16 to 8b's
+# velocity within FLUX_BF16_REL; 13c is 12b's IDU episode with idu_refine on.
+TP_CUT = (2, 2)
+TP_FP32_REL = 1e-5
+TP_JOIN_S = 900.0
+TP_IDU_OPT = dict(P_IDU_OPT, idu_refine=True)
 
 
 def log(phase, msg: str) -> None:
@@ -1114,7 +1139,9 @@ def idu_cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, Path]:
 
 def flux_phase(torch, dev, card: str, frames: list):
     """Phase 8b: FLUX.1-dev (bf16) and its VAE (fp32) at full width on two
-    1024^2 renders; returns the refiner and the refined frames."""
+    1024^2 renders; returns the refiner, the refined frames and host copies
+    for phase 13 (the frames, their tokens, the target conditioning, one
+    velocity of the tokens and the refined frames)."""
     from skyfall_gs_tpu_torch.priors.flowedit import flow_edit_ode_batch
     from skyfall_gs_tpu_torch.priors.flux import (
         FluxConfig, FluxTransformer, build_module, flux_flops, latent_ids)
@@ -1205,7 +1232,10 @@ def flux_phase(torch, dev, card: str, frames: list):
               f"{busy:.1f} ms; top kernels: " + "; ".join(
                   f"{name[:70]} {ms:.1f} ms" for name, ms in kernels[:8]))
     assert noop_rel <= FLUX_NOOP_REL, noop_rel
-    return refiner, refined
+    handoff = {"frames": frames, "tok": tok.cpu().numpy(), "v": v.cpu().numpy(), "t": 0.6,
+               "txt": tar.txt.cpu().numpy(), "pooled": tar.pooled.cpu().numpy(),
+               "guidance": tar.guidance, "refined": refined}
+    return refiner, refined, handoff
 
 
 def moge_phase(torch, dev, card: str, frames: list):
@@ -1375,15 +1405,16 @@ def text_phase(torch, dev, card: str, refiner, frames: list) -> None:
     torch.cuda.empty_cache()
 
 
-def stage2_phase(torch, rt, dev, card: str, tmp: Path) -> dict:
-    """Phase 8; returns the kernels' launch counts of 8a and 8d."""
+def stage2_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
+    """Phase 8; returns the kernels' launch counts of 8a and 8d, and 8b's
+    host copies for phase 13."""
     from skyfall_gs_tpu_torch.io.png import read_png
 
     t_phase = time.perf_counter()
     launches, model = idu_cli_phase(torch, rt, dev, card, tmp)
     render = model / "idu" / "e85.0_r300.0" / "render"
     frames = [read_png(str(render / f"{i:05d}.png")).astype(np.float32) / 255.0 for i in (0, 1)]
-    refiner, refined = flux_phase(torch, dev, card, frames)
+    refiner, refined, handoff = flux_phase(torch, dev, card, frames)
     pred = moge_phase(torch, dev, card, refined)
     for k, n in chain_phase(torch, rt, dev, card, tmp, model, refiner, pred).items():
         launches[k] += n
@@ -1393,7 +1424,7 @@ def stage2_phase(torch, rt, dev, card: str, tmp: Path) -> dict:
     del refiner
     torch.cuda.empty_cache()
     log(8, f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, handoff
 
 
 # ----------------------------------------------------------------------------
@@ -2880,6 +2911,313 @@ def gauss_phase(torch, rt, dev, card: str, tmp: Path, sat: dict, phase3_ms: floa
 
 
 # ----------------------------------------------------------------------------
+# Phase 13: tensor-parallel FLUX (rank programs run through parallel.mesh.launch)
+# ----------------------------------------------------------------------------
+
+def digest(a) -> str:
+    """SHA-256 of an array's bytes (a tensor goes to the host first)."""
+    import hashlib
+
+    a = a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _record_collectives(mesh) -> list:
+    """Wrap ``mesh``'s all-reduce and all-gather to record each call's
+    (name, shape, dtype); ``del mesh.all_reduce_, mesh.all_gather`` undoes
+    it."""
+    calls = []
+    for name in ("all_reduce_", "all_gather"):
+        def rec(t, *a, _fn=getattr(mesh, name), _name=name, **k):
+            calls.append((_name, tuple(t.shape), t.dtype))
+            return _fn(t, *a, **k)
+        setattr(mesh, name, rec)
+    return calls
+
+
+def _flux_inputs(torch, handoff: dict, dev):
+    from skyfall_gs_tpu_torch.priors.flux import FluxCond, latent_ids
+    from skyfall_gs_tpu_torch.priors.flux_vae import VAEConfig
+
+    h, w = handoff["frames"][0].shape[:2]
+    lat = 2 ** (len(VAEConfig().ch_mult) - 1)               # pixels per latent
+    tar = FluxCond(torch.from_numpy(handoff["txt"]).to(dev),
+                   torch.from_numpy(handoff["pooled"]).to(dev), handoff["guidance"])
+    return (torch.from_numpy(handoff["tok"]).to(dev), latent_ids(h // lat, w // lat, device=dev),
+            tar)
+
+
+def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -> dict:
+    """13a-13c in one of two gloo ranks sharing cuda:0: the sharded FLUX
+    against the whole one (fp32, depth cut) and against 8b's velocity
+    (FLUX.1-dev, bf16), FlowEdit through build_flux_refiner(mesh=...), and an
+    IDU episode on the view mesh with that refiner and MoGe on rank 0."""
+    import dataclasses
+
+    import torch
+
+    from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from skyfall_gs_tpu_torch.io.scene import load_scene
+    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+    from skyfall_gs_tpu_torch.priors.flux import FluxConfig, FluxTransformer, build_module
+    from skyfall_gs_tpu_torch.priors.flux_refiner import build_flux_refiner
+    from skyfall_gs_tpu_torch.priors.flux_shard import (
+        build_sharded_flux, make_sharded_flux_velocity)
+    from skyfall_gs_tpu_torch.priors.flux_vae import VAE, VAEConfig
+    from skyfall_gs_tpu_torch.priors.moge import MoGe, MoGePredictor, ViTConfig
+    from skyfall_gs_tpu_torch.train.idu import IDUOrchestrator
+    from skyfall_gs_tpu_torch.train.loop import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    tp = dataclasses.replace(mesh, axis="tp")
+    tok, ids, tar = _flux_inputs(torch, handoff, dev)
+    t = handoff["t"]
+    out = {}
+
+    # 13a: exactness in fp32 at full width, depth cut.
+    cut = FluxConfig()._replace(depth_double=TP_CUT[0], depth_single=TP_CUT[1])
+    part = build_sharded_flux(cut, tp, dtype=torch.float32, seed=0)
+    v_cut = part(tok, ids, tar, t)
+    out["cut_digest"] = digest(v_cut)
+    del part
+    if mesh.is_main:
+        whole = build_module(FluxTransformer, cut, dtype=torch.float32, device=dev, seed=0)
+        out["cut_rel"] = rel_norm(v_cut, whole(tok, ids, tar, t))
+        del whole
+    del v_cut
+    torch.cuda.empty_cache()
+
+    # 13a: FLUX.1-dev in bf16, built shard by shard from seed 0.
+    cfg = FluxConfig()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flux = build_sharded_flux(cfg, tp, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["param_gib"] = sum(p.numel() * p.element_size() for p in flux.parameters()) / 2**30
+    vel = make_sharded_flux_velocity(tp, cfg)
+    tp.traffic.update(collectives=0, bytes=0)
+    calls = _record_collectives(tp)
+    v = vel(flux, tok, ids, tar, t)
+    del tp.all_reduce_, tp.all_gather
+    out["traffic"] = dict(tp.traffic)
+    out["reduce_bytes"] = sum(int(np.prod(s)) * torch.empty((), dtype=d).element_size()
+                              for n, s, d in calls if n == "all_reduce_")
+    out["finite"] = bool(torch.isfinite(v).all())
+    out["v_rel"] = rel_norm(v.cpu(), torch.from_numpy(handoff["v"]))
+    out["v_digest"] = digest(v)
+    del v
+    out["vel_ms"] = cuda_ms(lambda: vel(flux, tok, ids, tar, t), 1, torch)
+    bufs = [torch.zeros(s, dtype=d, device=dev) for _, s, d in calls]
+
+    def replay():
+        for (name, _, _), b in zip(calls, bufs):
+            getattr(tp, name)(b)
+
+    out["collectives_ms"] = cuda_ms(replay, 1, torch)
+    del bufs
+    torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # 13b: FlowEdit through the sharded refiner on 8b's frames.
+    vcfg = VAEConfig()
+    vae = build_module(VAE, vcfg, dtype=torch.float32, device=dev, seed=1)
+    frames = handoff["frames"]
+    refiner = build_flux_refiner(transformer=flux, vae=vae, cfg=cfg, vae_cfg=vcfg, mesh=tp)
+    out["refine_ms"], refined = cuda_wall_ms(lambda: refiner.run(frames, n_min=0, n_max=2),
+                                             torch)
+    out["refined_digest"] = digest(np.stack(refined))
+    want = np.stack(handoff["refined"])
+    out["refined_rel"] = float(np.linalg.norm(np.stack(refined) - want) / np.linalg.norm(want))
+    out["refined_max_abs"] = float(np.abs(np.stack(refined) - want).max())
+    out["refined_finite"] = all(np.isfinite(r).all() for r in refined)
+    out["peak_gib_13b"] = torch.cuda.max_memory_allocated() / 2**30
+    del refiner, refined
+
+    # 13c: an IDU episode on the view mesh, every rank refining with the shards.
+    scene = load_scene(scene_dir, eval_split=True, device=dev)
+    pred = (MoGePredictor(cfg=ViTConfig(), model=build_module(MoGe, ViTConfig(), device=dev,
+                                                              seed=2))
+            if mesh.is_main else None)
+    trainer = Trainer(ModelConfig(model_path=str(Path(out_dir) / "idu")),
+                      OptimizationConfig(**TP_IDU_OPT), PipelineConfig(), scene, rng_seed=0,
+                      mesh=mesh)
+    state = trainer.init_state(ckpt)
+    orch = IDUOrchestrator(trainer, build_flux_refiner(transformer=flux, vae=vae, cfg=cfg,
+                                                       vae_cfg=vcfg, mesh=tp), pred)
+    views = []
+    generate = orch.generate_idu_views
+
+    def recorded(*a, **k):
+        got = generate(*a, **k)
+        views.extend(got)
+        return got
+
+    orch.generate_idu_views = recorded
+    reset_launches(rt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = orch.run(state, trainer.start_iteration, episodes=1)
+    torch.cuda.synchronize()
+    out["idu_wall"] = time.perf_counter() - t0
+    out["idu_episode"] = orch.episodes[0]
+    out["idu_overflow"] = max(orch.max_overflow, int(trainer.max_overflow))
+    out["idu_views_digest"] = digest(np.stack([v.image for v in views]))
+    out["idu_end"] = trainer.start_iteration + TP_IDU_OPT["idu_episode_iterations"]
+    out["launches"] = launches_of(rt)
+    out["peak_gib_13c"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def flux_nccl_rank(mesh, handoff: dict) -> dict:
+    """13a on NCCL: FLUX.1-dev in bf16 sharded over this mesh's ranks (one
+    per GPU) against 8b's velocity."""
+    import dataclasses
+
+    import torch
+
+    from skyfall_gs_tpu_torch.priors.flux import FluxConfig
+    from skyfall_gs_tpu_torch.priors.flux_shard import (
+        build_sharded_flux, make_sharded_flux_velocity)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tp = dataclasses.replace(mesh, axis="tp")
+    tok, ids, tar = _flux_inputs(torch, handoff, mesh.device)
+    cfg = FluxConfig()
+    torch.cuda.reset_peak_memory_stats()
+    flux = build_sharded_flux(cfg, tp, dtype=torch.bfloat16, seed=0)
+    vel = make_sharded_flux_velocity(tp, cfg)
+    tp.traffic.update(collectives=0, bytes=0)
+    v = vel(flux, tok, ids, tar, handoff["t"])
+    out = {"traffic": dict(tp.traffic), "finite": bool(torch.isfinite(v).all()),
+           "v_rel": rel_norm(v.cpu(), torch.from_numpy(handoff["v"])), "v_digest": digest(v),
+           "param_gib": sum(p.numel() * p.element_size() for p in flux.parameters()) / 2**30}
+    out["vel_ms"] = cuda_ms(lambda: vel(flux, tok, ids, tar, handoff["t"]), 2, torch)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def flux_tp_phase(torch, card: str, tmp: Path, sat: dict, handoff: dict) -> dict:
+    """Phase 13; returns the kernels' launch counts of every rank (13c)."""
+    from skyfall_gs_tpu_torch.parallel.mesh import launch
+    from skyfall_gs_tpu_torch.priors.flux import FluxConfig
+    from skyfall_gs_tpu_torch.priors.flux_shard import count_flux_params
+
+    t_phase = time.perf_counter()
+    cfg = FluxConfig()
+    n_img = handoff["tok"].shape[1]
+    n_txt = handoff["txt"].shape[1]
+    b = handoff["tok"].shape[0]
+    total, sharded, rep = count_flux_params(cfg)
+    # Per evaluation: 6 collectives per double block (2 modulation
+    # all-gathers, 4 all-reduces), 2 per single block; the all-reduces move
+    # the (B, L, d) bf16 stream (the double blocks' image and text parts),
+    # the all-gathers each rank's bf16 (B, 6d / 2) or (B, 3d / 2) modulation.
+    n_coll = 6 * cfg.depth_double + 2 * cfg.depth_single
+    reduce_bytes = (2 * cfg.depth_double + cfg.depth_single) * b * (n_img + n_txt) \
+        * cfg.hidden * 2
+    gather_bytes = (12 * cfg.depth_double + 3 * cfg.depth_single) * b * cfg.hidden // 2 * 2
+    ckpt = str(sat["median"]["model"] / f"chkpnt{TRAIN_ITERS}.npz")
+
+    # -- 13a-13c: two gloo ranks sharing cuda:0 ---------------------------------
+    t0 = time.perf_counter()
+    res = launch(flux_tp_rank, 2, (handoff, str(sat["scene"]), ckpt, str(tmp / "p13")),
+                 device=f"{DEVICE}:0", backend="gloo", timeout_s=P_TIMEOUT_S,
+                 join_timeout_s=TP_JOIN_S)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    tr = r0["traffic"]
+    log("13a", f"tensor-parallel FLUX at tp = 2 on 2 gloo ranks sharing [{card}]: fp32, full "
+               f"width, depth cut to {TP_CUT[0]} double + {TP_CUT[1]} single blocks, "
+               f"build_sharded_flux(seed 0) against the whole FluxTransformer of the same "
+               f"seed on 8b's 2-image tokens ({n_img} + {n_txt} tokens): rel norm "
+               f"{r0['cut_rel']:.3e} (bound {TP_FP32_REL}), ranks bit-equal "
+               f"{len({x['cut_digest'] for x in res}) == 1}")
+    log("13a", f"FLUX.1-dev (FluxConfig(), {total / 1e9:.3f}B parameters: {sharded / 1e9:.3f}B "
+               f"sharded, {rep / 1e9:.3f}B replicated) in bf16 at tp = 2 on 2 gloo ranks "
+               f"sharing [{card}], built shard by shard from seed 0 in "
+               f"{max(x['build_s'] for x in res):.2f} s: parameters "
+               f"{r0['param_gib']:.3f} GiB per rank (count_flux_params: "
+               f"{(sharded / 2 + rep) * 2 / 2**30:.3f}); one velocity evaluation of the "
+               f"{b}-image batch against 8b's unsharded one: rel norm {r0['v_rel']:.3e} (bound "
+               f"{FLUX_BF16_REL}), finite, ranks bit-equal "
+               f"{len({x['v_digest'] for x in res}) == 1}; {r0['vel_ms']:.1f} ms per evaluation "
+               f"(CUDA events; {r0['vel_ms'] / b:.1f} ms per image), its collectives alone "
+               f"{r0['collectives_ms']:.1f} ms: {tr['collectives']} collectives (computed "
+               f"{n_coll}) moving {tr['bytes'] / 1e6:.1f} MB per rank per evaluation, "
+               f"{r0['reduce_bytes'] / 1e6:.1f} MB of it all-reduced (computed "
+               f"{reduce_bytes / 1e6:.1f}; all-gathered {gather_bytes / 1e6:.3f}), "
+               f"host-staged by gloo; peak memory per rank "
+               f"{max(x['peak_gib'] for x in res):.2f} GiB")
+    assert r0["cut_rel"] <= TP_FP32_REL, r0["cut_rel"]
+    assert len({x["cut_digest"] for x in res}) == 1
+    assert all(x["finite"] for x in res) and r0["v_rel"] <= FLUX_BF16_REL, r0["v_rel"]
+    assert len({x["v_digest"] for x in res}) == 1
+    assert tr["collectives"] == n_coll and r0["reduce_bytes"] == reduce_bytes, tr
+    assert tr["bytes"] == reduce_bytes + gather_bytes, (tr, reduce_bytes, gather_bytes)
+
+    log("13b", f"build_flux_refiner(mesh=...) on the 2 gloo ranks sharing [{card}]: FlowEdit "
+               f"n_max 2 of 28 on 8b's two {handoff['frames'][0].shape[0]}^2 frames in "
+               f"{r0['refine_ms'] / 1e3:.2f} s; refined frames bit-equal across ranks "
+               f"{len({x['refined_digest'] for x in res}) == 1}, against 8b's rel norm "
+               f"{r0['refined_rel']:.3e} (bound {FLUX_BF16_REL}), max abs "
+               f"{r0['refined_max_abs']:.3e}; peak memory per rank "
+               f"{max(x['peak_gib_13b'] for x in res):.2f} GiB")
+    assert all(x["refined_finite"] for x in res)
+    assert len({x["refined_digest"] for x in res}) == 1
+    assert r0["refined_rel"] <= FLUX_BF16_REL, r0["refined_rel"]
+
+    ep = r0["idu_episode"]
+    refined_dir = tmp / "p13" / "idu" / "idu" / ep["tag"] / "render_refine"
+    written = sorted(refined_dir.iterdir())
+    launches = {"fwd": 0, "bwd": 0}
+    add_launches(launches, [x["launches"] for x in res])
+    log("13c", f"one IDU episode on a 2-rank view mesh (gloo, cuda:0) of [{card}] from "
+               f"{Path(ckpt).name}, idu_refine on the sharded FLUX.1-dev of 13b, MoGe on rank 0 "
+               f"({ep['views']} views at {ep['size']}^2, {ep['iterations']} iterations) in "
+               f"{r0['idu_wall']:.2f} s (views rendered, refined on both ranks, depth-predicted "
+               f"and broadcast in {ep['views_s']:.2f} s, training {ep['train_s']:.2f} s), "
+               f"overflow {max(x['idu_overflow'] for x in res)}, refined views bit-equal across "
+               f"ranks {len({x['idu_views_digest'] for x in res}) == 1}, render_refine/ "
+               f"{len(written)} PNGs; peak memory per rank "
+               f"{max(x['peak_gib_13c'] for x in res):.2f} GiB; launches (both ranks) fwd "
+               f"{launches['fwd']} bwd {launches['bwd']}; 13a-13c {wall:.1f} s with the ranks' "
+               f"start")
+    assert all(x["idu_overflow"] == 0 for x in res)
+    assert len({x["idu_views_digest"] for x in res}) == 1
+    assert len(written) == ep["views"] == 2, written
+    assert (tmp / "p13" / "idu" / f"chkpnt{r0['idu_end']}.npz").is_file()
+    for x in res:
+        assert x["launches"]["fwd"] > 0 and x["launches"]["bwd"] > 0, x["launches"]
+
+    # -- 13a on NCCL, one rank per GPU ----------------------------------------------
+    n_gpus = torch.cuda.device_count()
+    world = min(n_gpus, 2)
+    t0 = time.perf_counter()
+    res = launch(flux_nccl_rank, world, (handoff,), device=DEVICE, timeout_s=P_TIMEOUT_S,
+                 join_timeout_s=TP_JOIN_S)
+    r0 = res[0]
+    log("13a", f"FLUX.1-dev bf16 at tp = {world} on NCCL over {world} of {n_gpus} visible GPUs "
+               f"on [{card}]: parameters {r0['param_gib']:.3f} GiB per rank, velocity against "
+               f"8b's rel norm {r0['v_rel']:.3e} (bound {FLUX_BF16_REL}), ranks bit-equal "
+               f"{len({x['v_digest'] for x in res}) == 1}, {r0['vel_ms']:.1f} ms per {b}-image "
+               f"evaluation (CUDA events), {r0['traffic']['collectives']} collectives; peak "
+               f"memory {max(x['peak_gib'] for x in res):.2f} GiB; "
+               f"{time.perf_counter() - t0:.1f} s with the ranks' start; NCCL across two cards "
+               f"{'measured' if world == 2 else 'not measured (one GPU visible)'}")
+    assert all(x["finite"] for x in res) and r0["v_rel"] <= FLUX_BF16_REL, r0["v_rel"]
+    assert len({x["v_digest"] for x in res}) == 1
+    assert r0["traffic"]["collectives"] == n_coll
+    log(13, f"launches fwd {launches['fwd']} bwd {launches['bwd']} (every rank); phase 13 "
+            f"took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # Main
 # ----------------------------------------------------------------------------
 
@@ -3080,7 +3418,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # -- phase 8: Stage 2 on phase 6's scene ----------------------------------
-        for k, n in stage2_phase(torch, rt, dev, card, Path(tmp)).items():
+        counts, handoff = stage2_phase(torch, rt, dev, card, Path(tmp))
+        for k, n in counts.items():
             launches[k] += n
 
         # -- phase 9: the evaluation suites and the LPIPS loss ----------------------
@@ -3100,6 +3439,11 @@ def main() -> int:
 
         # -- phase 12: gaussian-sharded training --------------------------------------
         for k, n in gauss_phase(torch, rt, dev, card, Path(tmp), sat, med).items():
+            launches[k] += n
+        torch.cuda.empty_cache()
+
+        # -- phase 13: tensor-parallel FLUX ---------------------------------------------
+        for k, n in flux_tp_phase(torch, card, Path(tmp), sat, handoff).items():
             launches[k] += n
 
     # No single PyTorch call composites depth-sorted splats: library_ms null.

@@ -11,12 +11,14 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from skyfall_gs_tpu_torch.core.transforms import projection_matrix, world_to_view
+
+FRUSTUM_CLAMP = 1.3  # EWA Jacobian focal clamp, in multiples of tan(fov/2)
 
 
 @dataclass
@@ -37,6 +39,9 @@ class Camera:
     zfar: float = 100.0
     width: int = 0
     height: int = 0
+    # The EWA Jacobian's clamp on x/z and y/z as (lo_x, hi_x, lo_y, hi_y);
+    # None is FRUSTUM_CLAMP times this camera's own field of view.
+    clamp_window: Optional[Tuple[float, float, float, float]] = None
 
     def to(self, device) -> "Camera":
         return dataclasses.replace(self, **{
@@ -106,12 +111,26 @@ def camera_from_c2w(
                        **kwargs)
 
 
+def clamp_window(camera: Camera) -> tuple:
+    """The EWA Jacobian's clamp window (lo_x, hi_x, lo_y, hi_y) on x/z and
+    y/z: the camera's own ``clamp_window``, else FRUSTUM_CLAMP times its
+    field of view about the principal point (tensors, no host sync)."""
+    if camera.clamp_window is not None:
+        return camera.clamp_window
+    m = FRUSTUM_CLAMP
+    return (camera.tan_fovx * (-m - camera.cx), camera.tan_fovx * (m - camera.cx),
+            camera.tan_fovy * (-m - camera.cy), camera.tan_fovy * (m - camera.cy))
+
+
 def band_camera(camera: Camera, band: int, num_bands: int) -> Camera:
     """An exact sub-camera for horizontal image band ``band`` of
     ``num_bands``: it renders rows [k*Hb, (k+1)*Hb) of the full image
     (the same world rays).  Focal lengths stay, the vertical FoV shrinks
     and the principal point shifts so that pixel (x, y) maps to global
-    (x, y + k*Hb).  The height must divide into ``num_bands`` bands."""
+    (x, y + k*Hb).  The band keeps the full frame's clamp window, so a
+    splat centered outside the band projects as in the full frame (the JAX
+    package's band clamps to the band's own FoV).  The height must divide
+    into ``num_bands`` bands."""
     h = camera.height
     if h % num_bands != 0:
         raise ValueError(f"height {h} not divisible by {num_bands} bands")
@@ -129,7 +148,8 @@ def band_camera(camera: Camera, band: int, num_bands: int) -> Camera:
         full_proj=torch.from_numpy((proj @ w2c).astype(np.float32)).to(dev),
         tan_fovy=torch.tensor(np.float32(tan_fovy_new), device=dev),
         cy=torch.tensor(np.float32(cy_new), device=dev),
-        height=hb)
+        height=hb,
+        clamp_window=tuple(float(v) for v in clamp_window(camera)))
 
 
 def look_at_c2w(eye: Sequence[float], target: Sequence[float],

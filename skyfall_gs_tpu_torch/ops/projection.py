@@ -15,14 +15,13 @@ from dataclasses import dataclass
 
 import torch
 
-from skyfall_gs_tpu_torch.core.camera import Camera
+from skyfall_gs_tpu_torch.core.camera import Camera, clamp_window
 from skyfall_gs_tpu_torch.core.transforms import (
     covariance_from_scaling_rotation,
     quat_to_rotmat,
 )
 
 NEAR_CULL_Z = 0.2
-FRUSTUM_CLAMP = 1.3  # EWA Jacobian focal clamp, in multiples of tan(fov/2)
 
 
 @dataclass
@@ -63,11 +62,7 @@ def compute_cov2d(means3d: torch.Tensor, cov3d: torch.Tensor, camera: Camera,
     wv = camera.world_view
     t = means3d @ wv[:3, :3].T + wv[:3, 3]
     tz = torch.clamp_min(t[:, 2], 1e-6)
-    m = FRUSTUM_CLAMP
-    lo_x = camera.tan_fovx * (-m - camera.cx)
-    hi_x = camera.tan_fovx * (m - camera.cx)
-    lo_y = camera.tan_fovy * (-m - camera.cy)
-    hi_y = camera.tan_fovy * (m - camera.cy)
+    lo_x, hi_x, lo_y, hi_y = clamp_window(camera)
     tx = torch.clamp(t[:, 0] / tz, lo_x, hi_x) * tz
     ty = torch.clamp(t[:, 1] / tz, lo_y, hi_y) * tz
 

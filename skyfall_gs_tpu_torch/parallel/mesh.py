@@ -179,6 +179,10 @@ class ViewMesh:
     def is_main(self) -> bool:
         return self.rank == 0
 
+    def global_ranks(self) -> List[int]:
+        """The global ranks of the group, in group order."""
+        return dist.get_process_group_ranks(self.group)
+
     def _on_group(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` where the group's backend takes it: gloo reduces CUDA
         tensors only for some collectives, so they go through the host."""

@@ -184,6 +184,9 @@ class FlowEditRefiner:
         self.src_cond = src_cond
         self.tar_cond = tar_cond
         self._generators: Dict[torch.device, torch.Generator] = {}
+        # The tensor-parallel mesh of a sharded velocity field
+        # (``build_flux_refiner(mesh=...)``): every rank of it calls ``run``.
+        self.mesh = None
 
     def generator(self, device) -> torch.Generator:
         """The refiner's noise stream on ``device`` (seeded once)."""

@@ -143,6 +143,21 @@ def _modulate(x, shift, scale):
     return _layernorm(x) * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
+def _gather(mesh, x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel output made whole: every rank's last-dim slice,
+    concatenated in rank order (identity without a mesh)."""
+    return x if mesh is None else torch.cat(mesh.all_gather(x).unbind(0), -1)
+
+
+def _row(mesh, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin(x)``; with a mesh, ``lin`` holds this rank's input columns:
+    the partial products are summed over the ranks in ``x``'s dtype, then
+    the bias is added once."""
+    if mesh is None:
+        return lin(x)
+    return mesh.all_reduce_(F.linear(x, lin.weight)) + lin.bias
+
+
 class _Embedder(nn.Module):
     """diffusers TimestepEmbedding / PixArtAlphaTextProjection: linear, SiLU,
     linear."""
@@ -186,44 +201,55 @@ class _FeedForward(nn.Module):
         super().__init__()
         self.net = nn.ModuleList([_GeluProj(d, mlp), nn.Identity(), nn.Linear(mlp, d)])
 
-    def forward(self, x):
-        return self.net[2](F.gelu(self.net[0].proj(x), approximate="tanh"))
+    def forward(self, x, mesh=None):
+        return _row(mesh, self.net[2], F.gelu(self.net[0].proj(x), approximate="tanh"))
 
 
 class _JointAttention(nn.Module):
-    def __init__(self, d: int, hd: int):
+    def __init__(self, d: int, hd: int, inner: int):
         super().__init__()
-        self.to_q, self.to_k, self.to_v = nn.Linear(d, d), nn.Linear(d, d), nn.Linear(d, d)
+        self.to_q, self.to_k, self.to_v = (nn.Linear(d, inner), nn.Linear(d, inner),
+                                           nn.Linear(d, inner))
         self.add_q_proj, self.add_k_proj, self.add_v_proj = (
-            nn.Linear(d, d), nn.Linear(d, d), nn.Linear(d, d))
+            nn.Linear(d, inner), nn.Linear(d, inner), nn.Linear(d, inner))
         self.norm_q, self.norm_k = RMSNorm(hd), RMSNorm(hd)
         self.norm_added_q, self.norm_added_k = RMSNorm(hd), RMSNorm(hd)
-        self.to_out = nn.ModuleList([nn.Linear(d, d)])
-        self.to_add_out = nn.Linear(d, d)
+        self.to_out = nn.ModuleList([nn.Linear(inner, d)])
+        self.to_add_out = nn.Linear(inner, d)
 
 
 class _SingleAttention(nn.Module):
-    def __init__(self, d: int, hd: int):
+    def __init__(self, d: int, hd: int, inner: int):
         super().__init__()
-        self.to_q, self.to_k, self.to_v = nn.Linear(d, d), nn.Linear(d, d), nn.Linear(d, d)
+        self.to_q, self.to_k, self.to_v = (nn.Linear(d, inner), nn.Linear(d, inner),
+                                           nn.Linear(d, inner))
         self.norm_q, self.norm_k = RMSNorm(hd), RMSNorm(hd)
 
 
+# The blocks take an optional tensor-parallel mesh (``priors/flux_shard.py``):
+# a rank then holds heads / tp whole heads and mlp / tp MLP columns; the
+# modulation, q/k/v and MLP-in layers are column shards (their modulation
+# outputs all-gathered), the attention-out, MLP-out and fused single-block
+# output layers row shards (all-reduced, bias after the sum).
+
 class DoubleBlock(nn.Module):
-    def __init__(self, cfg: FluxConfig):
+    def __init__(self, cfg: FluxConfig, mesh=None):
         super().__init__()
+        tp = mesh.size if mesh is not None else 1
         d, mlp = cfg.hidden, int(cfg.hidden * cfg.mlp_ratio)
-        self.heads = cfg.heads
-        self.norm1 = _AdaNorm(d, 6 * d)
-        self.norm1_context = _AdaNorm(d, 6 * d)
-        self.attn = _JointAttention(d, cfg.head_dim)
-        self.ff = _FeedForward(d, mlp)
-        self.ff_context = _FeedForward(d, mlp)
+        self.heads, self.mesh = cfg.heads // tp, mesh
+        self.norm1 = _AdaNorm(d, 6 * d // tp)
+        self.norm1_context = _AdaNorm(d, 6 * d // tp)
+        self.attn = _JointAttention(d, cfg.head_dim, d // tp)
+        self.ff = _FeedForward(d, mlp // tp)
+        self.ff_context = _FeedForward(d, mlp // tp)
 
     def forward(self, img, txt, temb, cos, sin):
-        h, a = self.heads, self.attn
-        i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = self.norm1.linear(temb).chunk(6, -1)
-        t_sh1, t_sc1, t_g1, t_sh2, t_sc2, t_g2 = self.norm1_context.linear(temb).chunk(6, -1)
+        h, a, mesh = self.heads, self.attn, self.mesh
+        i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = _gather(mesh, self.norm1.linear(temb)).chunk(
+            6, -1)
+        t_sh1, t_sc1, t_g1, t_sh2, t_sc2, t_g2 = _gather(
+            mesh, self.norm1_context.linear(temb)).chunk(6, -1)
         img_n = _modulate(img, i_sh1, i_sc1)
         txt_n = _modulate(txt, t_sh1, t_sc1)
         # Joint attention over [txt; img] (diffusers' order).
@@ -234,47 +260,54 @@ class DoubleBlock(nn.Module):
         v = torch.cat([_heads(a.add_v_proj(txt_n), h), _heads(a.to_v(img_n), h)], 2)
         out = attention(_apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v)
         lt = txt.shape[1]
-        img = img + i_g1[:, None, :] * a.to_out[0](out[:, lt:])
-        txt = txt + t_g1[:, None, :] * a.to_add_out(out[:, :lt])
-        img = img + i_g2[:, None, :] * self.ff(_modulate(img, i_sh2, i_sc2))
-        txt = txt + t_g2[:, None, :] * self.ff_context(_modulate(txt, t_sh2, t_sc2))
+        img = img + i_g1[:, None, :] * _row(mesh, a.to_out[0], out[:, lt:])
+        txt = txt + t_g1[:, None, :] * _row(mesh, a.to_add_out, out[:, :lt])
+        img = img + i_g2[:, None, :] * self.ff(_modulate(img, i_sh2, i_sc2), mesh)
+        txt = txt + t_g2[:, None, :] * self.ff_context(_modulate(txt, t_sh2, t_sc2), mesh)
         return img, txt
 
 
 class SingleBlock(nn.Module):
-    def __init__(self, cfg: FluxConfig):
+    """With a mesh, ``proj_out`` holds this rank's columns of its attention
+    half then of its MLP half (a contiguous slice of the fused columns would
+    straddle the boundary)."""
+
+    def __init__(self, cfg: FluxConfig, mesh=None):
         super().__init__()
+        tp = mesh.size if mesh is not None else 1
         d, mlp = cfg.hidden, int(cfg.hidden * cfg.mlp_ratio)
-        self.heads = cfg.heads
-        self.norm = _AdaNorm(d, 3 * d)
-        self.attn = _SingleAttention(d, cfg.head_dim)
-        self.proj_mlp = nn.Linear(d, mlp)
-        self.proj_out = nn.Linear(d + mlp, d)
+        self.heads, self.mesh = cfg.heads // tp, mesh
+        self.norm = _AdaNorm(d, 3 * d // tp)
+        self.attn = _SingleAttention(d, cfg.head_dim, d // tp)
+        self.proj_mlp = nn.Linear(d, mlp // tp)
+        self.proj_out = nn.Linear((d + mlp) // tp, d)
 
     def forward(self, x, temb, cos, sin):
-        h, a = self.heads, self.attn
-        sh, sc, g = self.norm.linear(temb).chunk(3, -1)
+        h, a, mesh = self.heads, self.attn, self.mesh
+        sh, sc, g = _gather(mesh, self.norm.linear(temb)).chunk(3, -1)
         xn = _modulate(x, sh, sc)
         q = _apply_rope(a.norm_q(_heads(a.to_q(xn), h)), cos, sin)
         k = _apply_rope(a.norm_k(_heads(a.to_k(xn), h)), cos, sin)
         att = attention(q, k, _heads(a.to_v(xn), h))
         mlp = F.gelu(self.proj_mlp(xn), approximate="tanh")
-        return x + g[:, None, :] * self.proj_out(torch.cat([att, mlp], -1))
+        return x + g[:, None, :] * _row(mesh, self.proj_out, torch.cat([att, mlp], -1))
 
 
 class FluxTransformer(nn.Module):
-    """The FLUX.1 velocity field v(tokens, t, cond) (diffusers key names)."""
+    """The FLUX.1 velocity field v(tokens, t, cond) (diffusers key names).
+    ``mesh``: see ``priors/flux_shard.py``'s ``ShardedFluxTransformer``."""
 
-    def __init__(self, cfg: FluxConfig = FluxConfig()):
+    def __init__(self, cfg: FluxConfig = FluxConfig(), mesh=None):
         super().__init__()
         d = cfg.hidden
         self.cfg = cfg
         self.x_embedder = nn.Linear(cfg.in_channels, d)
         self.context_embedder = nn.Linear(cfg.joint_dim, d)
         self.time_text_embed = _TimeTextEmbed(cfg)
-        self.transformer_blocks = nn.ModuleList(DoubleBlock(cfg) for _ in range(cfg.depth_double))
+        self.transformer_blocks = nn.ModuleList(
+            DoubleBlock(cfg, mesh) for _ in range(cfg.depth_double))
         self.single_transformer_blocks = nn.ModuleList(
-            SingleBlock(cfg) for _ in range(cfg.depth_single))
+            SingleBlock(cfg, mesh) for _ in range(cfg.depth_single))
         self.norm_out = _AdaNorm(d, 2 * d)
         self.proj_out = nn.Linear(d, cfg.in_channels)
 
@@ -337,6 +370,22 @@ def flux_velocity(model: FluxTransformer, img_tokens, img_ids, cond: FluxCond, t
 # ----------------------------------------------------------------------------
 
 @torch.no_grad()
+def init_tensor_(name: str, p: torch.Tensor, gens: Dict[torch.device, torch.Generator],
+                 seed: int, std: float = 0.02) -> None:
+    """One parameter of :func:`random_init_`: a bias 0, a norm scale 1, a
+    matrix N(0, std^2) from ``gens``' generator of its device (made from
+    ``seed`` on first use)."""
+    if name.endswith("bias"):
+        p.zero_()
+    elif p.ndim == 1:
+        p.fill_(1.0)
+    else:
+        if p.device not in gens:
+            gens[p.device] = torch.Generator(device=p.device).manual_seed(seed)
+        p.normal_(0.0, std, generator=gens[p.device])
+
+
+@torch.no_grad()
 def random_init_(module: nn.Module, seed: int = 0, std: float = 0.02) -> nn.Module:
     """Fill ``module`` in place as the JAX package's random init does:
     every matrix N(0, std^2), every bias 0, every norm scale 1, drawn
@@ -344,14 +393,7 @@ def random_init_(module: nn.Module, seed: int = 0, std: float = 0.02) -> nn.Modu
     seeded generator (so no float32 copy of a bf16 model is ever made)."""
     gens: Dict[torch.device, torch.Generator] = {}
     for name, p in module.named_parameters():
-        if name.endswith("bias"):
-            p.zero_()
-        elif p.ndim == 1:
-            p.fill_(1.0)
-        else:
-            if p.device not in gens:
-                gens[p.device] = torch.Generator(device=p.device).manual_seed(seed)
-            p.normal_(0.0, std, generator=gens[p.device])
+        init_tensor_(name, p, gens, seed, std)
     return module
 
 

@@ -11,9 +11,12 @@ edit), as in the JAX package; ``encode_prompts`` builds it from token ids
 through ``priors/text_encoders.py``'s T5 and CLIP encoders.
 
 The transformer runs in ``dtype`` (bf16 by default on CUDA: FLUX.1-dev is
-about 23.8 GB in bf16 and fits one 80 GB card, so the JAX package's tensor
-parallel ``flux_shard.py`` has no counterpart here); the VAE runs in
-float32, as in the JAX package.
+about 23.8 GB in bf16 and fits one 80 GB card); the VAE runs in float32, as
+in the JAX package.  With ``mesh`` (a ``parallel.mesh.ViewMesh``) the
+transformer runs tensor-parallel over its ranks in ``dtype``
+(``priors/flux_shard.py``): every rank builds the refiner, holds its shard
+and the whole VAE, and calls ``run`` on the same frames; FlowEdit's noise
+comes from ``seed`` on every rank, so every rank returns the same frames.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from skyfall_gs_tpu_torch.priors.flux import (
     shifted_sigmas,
     unpack_latents,
 )
+from skyfall_gs_tpu_torch.priors.flux_shard import ShardedFluxTransformer, shard_flux_params
 from skyfall_gs_tpu_torch.priors.flux_vae import VAE, VAEConfig
 from skyfall_gs_tpu_torch.priors.text_encoders import CLIPTextEncoder, T5Encoder
 
@@ -85,20 +89,35 @@ def encode_prompts(src_ids_t5, tar_ids_t5, src_ids_clip, tar_ids_clip,
     return FluxCond(src_txt, src_pool, guidance_src), FluxCond(tar_txt, tar_pool, guidance_tar)
 
 
-def _module(cls, cfg, given, checkpoint_path, name, dtype, device):
-    """``given`` (a module, or a state dict of diffusers keys), else the
+def _state(given, checkpoint_path, name):
+    """``given`` (a module or a state dict of diffusers keys), else the
     weights under ``checkpoint_path/name`` (or ``checkpoint_path`` itself
-    when it has no such subdirectory), as a ``cls`` in ``dtype`` on
+    when it has no such subdirectory)."""
+    if given is not None:
+        return given
+    sub = os.path.join(checkpoint_path, name)
+    return _load_torch_dir(sub if os.path.isdir(sub) else checkpoint_path)
+
+
+def _module(cls, cfg, given, dtype, device):
+    """``given`` (a module or a state dict) as a ``cls`` in ``dtype`` on
     ``device``."""
     if isinstance(given, torch.nn.Module):
         return given.to(device=device, dtype=dtype).eval()
-    sd = given
-    if sd is None:
-        sub = os.path.join(checkpoint_path, name)
-        sd = _load_torch_dir(sub if os.path.isdir(sub) else checkpoint_path)
     module = build_module(cls, cfg, dtype=dtype, device=device, seed=None)
-    module.load_state_dict(sd, strict=True)
+    module.load_state_dict(given, strict=True)
     return module
+
+
+def _sharded(given, mesh, cfg, dtype) -> ShardedFluxTransformer:
+    """``given`` sharded over ``mesh`` (a ``ShardedFluxTransformer`` of that
+    mesh is taken as it is)."""
+    if isinstance(given, ShardedFluxTransformer):
+        if given.mesh.size != mesh.size or given.mesh.rank != mesh.rank:
+            raise ValueError(f"the transformer is rank {given.mesh.rank} of "
+                             f"{given.mesh.size}, the mesh rank {mesh.rank} of {mesh.size}")
+        return given.eval()
+    return shard_flux_params(given, mesh, cfg, dtype=dtype).eval()
 
 
 def build_flux_refiner(
@@ -115,6 +134,7 @@ def build_flux_refiner(
     seed: int = 0,
     device="cuda",
     dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> FlowEditRefiner:
     """Construct the FLUX FlowEdit refine backend.
 
@@ -122,12 +142,18 @@ def build_flux_refiner(
         checkpoint_path: a diffusers pipeline directory (``transformer/``
             and ``vae/``) or one flat directory of torch weights; read for
             whichever of ``transformer`` / ``vae`` is not given.
-        transformer / vae: modules, or state dicts under diffusers' names.
+        transformer / vae: modules, or state dicts under diffusers' names
+            (with ``mesh``, the transformer may also be this rank's
+            ``ShardedFluxTransformer``, e.g. from ``build_sharded_flux``).
         src_cond / tar_cond: prompt conditioning; zero embeddings if None.
-        device: where the modules run (default the card).
+        device: where the modules run (default the card; ``mesh.device``
+            with a mesh).
         dtype: the transformer's dtype; default bf16 on CUDA, else float32.
+        mesh: a ``parallel.mesh.ViewMesh``: the transformer runs
+            tensor-parallel over its ranks (the refiner's ``mesh``); every
+            rank builds the refiner and calls ``run`` alike.
     """
-    device = torch.device(device)
+    device = torch.device(device if mesh is None else mesh.device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     if (transformer is None or vae is None) and checkpoint_path is None:
@@ -135,9 +161,12 @@ def build_flux_refiner(
             "No FLUX weights were given. Pass checkpoint_path=<local diffusers FLUX "
             "directory> or transformer= and vae= (modules or diffusers-keyed state "
             "dicts).")
-    transformer = _module(FluxTransformer, cfg, transformer, checkpoint_path, "transformer",
-                          dtype, device)
-    vae = _module(VAE, vae_cfg, vae, checkpoint_path, "vae", torch.float32, device)
+    transformer = _state(transformer, checkpoint_path, "transformer")
+    if mesh is None:
+        transformer = _module(FluxTransformer, cfg, transformer, dtype, device)
+    else:
+        transformer = _sharded(transformer, mesh, cfg, dtype)
+    vae = _module(VAE, vae_cfg, _state(vae, checkpoint_path, "vae"), torch.float32, device)
     if src_cond is None or tar_cond is None:
         d_src, d_tar = default_conditioning(cfg, device=device)
         src_cond, tar_cond = src_cond or d_src, tar_cond or d_tar
@@ -172,5 +201,5 @@ def build_flux_refiner(
                               src_cond=src_cond, tar_cond=tar_cond, num_steps=num_steps,
                               seed=seed, batch_size=batch_size, sigmas_fn=sigmas_fn,
                               device=device)
-    refiner.transformer, refiner.vae = transformer, vae
+    refiner.transformer, refiner.vae, refiner.mesh = transformer, vae, mesh
     return refiner

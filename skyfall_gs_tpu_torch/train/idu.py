@@ -61,6 +61,15 @@ view set from the state gathered on every rank
 the PLY; pseudo views are rendered by all the shards together; the
 episode's checkpoint is a ``chkpnt<it>.orbax`` directory every rank writes
 its rows into (``train/checkpoint_sharded.py``).
+
+A sharded refiner (``build_flux_refiner(mesh=...)``, ``refiner.mesh``)
+needs every rank of its mesh inside ``run``, so on such a Trainer (view or
+gauss, whose mesh must hold the same ranks) view generation takes three
+steps: rank 0 renders and writes the frames while the others wait, the
+frames are broadcast, every rank refines them, then rank 0 saves the
+refined frames, predicts their depth and writes it while the others wait.
+The JAX package's single controller can drive a sharded refiner from a
+single-device Trainer; here that raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -100,6 +109,13 @@ class IDUOrchestrator:
     depth_predictor: object  # priors.DepthPredictor
 
     def __post_init__(self):
+        tp = getattr(self.refiner, "mesh", None)
+        mesh = self.trainer.mesh
+        if tp is not None and (mesh is None or mesh.global_ranks() != tp.global_ranks()):
+            raise ValueError(
+                "a sharded refiner (refiner.mesh set) runs on every rank of its mesh: train "
+                "with Trainer(mesh=<a mesh of the same ranks>) (mesh_mode 'view' or "
+                "'gauss'); a single-device Trainer or a mesh of other ranks cannot drive it")
         self.max_overflow = 0    # the largest overflow of any IDU render or step
         # Per episode: the orbit set (views, size, binning capacity,
         # overflow, host ms per render between two synchronizations, mean
@@ -144,22 +160,35 @@ class IDUOrchestrator:
         if mesh is None:
             refined, depths = self._render_refine_write(state, cams, episode_tag)
         else:
-            out = mesh.on_main(self._render_refine_write, t._full(state), cams, episode_tag)
+            full = t._full(state)
+            if getattr(self.refiner, "mesh", None) is not None and o.idu_refine:
+                # Every rank refines and so already holds the refined frames.
+                imgs = mesh.on_main(self._render, full, cams, episode_tag)
+                refined = self._refine(mesh.broadcast_arrays(imgs))
+                depths = mesh.on_main(self._write_depths, refined, episode_tag)
+            else:
+                out = mesh.on_main(self._render_refine_write, full, cams, episode_tag)
+                refined = mesh.broadcast_arrays(out[0] if mesh.is_main else None)
+                depths = out[1] if mesh.is_main else None
             record = mesh.broadcast_object(self.episodes[-1] if mesh.is_main else None)
             if not mesh.is_main:
                 self.episodes.append(record)
                 self.max_overflow = max(self.max_overflow, record["overflow"])
-            refined = mesh.broadcast_arrays(out[0] if mesh.is_main else None)
-            depths = mesh.broadcast_arrays(out[1] if mesh.is_main else None)
+            depths = mesh.broadcast_arrays(depths)
         return [View(camera=cam, image=np.asarray(img, np.float32), mask=None,
                      depth=np.asarray(dep, np.float32), image_name=episode_tag)
                 for cam, img, dep in zip(cams, refined, depths)]
 
     def _render_refine_write(self, state: TrainState, cams: list, episode_tag: str):
-        """The view set's frames and depths for ``cams``: render (the fixed
-        test embedding unless random_ap), refine with ``idu_refine``,
-        predict depth, write them under ``model_path/idu/<tag>/`` and record
-        the episode's orbit set."""
+        """The view set's frames and depths for ``cams``: render, refine,
+        predict depth and write them."""
+        refined = self._refine(self._render(state, cams, episode_tag))
+        return refined, self._write_depths(refined, episode_tag)
+
+    def _render(self, state: TrainState, cams: list, episode_tag: str) -> List[np.ndarray]:
+        """The view set's frames for ``cams`` (the fixed test embedding
+        unless random_ap), written under ``model_path/idu/<tag>/render/``;
+        records the episode's orbit set."""
         t = self.trainer
         o, cfg = t.opt_cfg, t.model_cfg
         size = o.idu_render_size
@@ -187,21 +216,30 @@ class IDUOrchestrator:
                                   "capacity": cap, "overflow": overflow,
                                   "ms_per_render": ms, "alpha_coverage": coverage})
 
-        idu_dir = os.path.join(cfg.model_path, "idu", episode_tag)
-        _save_frames(imgs, os.path.join(idu_dir, "render"))
-        if o.idu_refine:
-            refined = self.refiner.run(imgs, n_min=o.idu_flow_edit_n_min,
-                                       n_max=o.idu_flow_edit_n_max,
-                                       n_max_end=o.idu_flow_edit_n_max_end,
-                                       n_avg=o.idu_flow_edit_n_avg)
+        _save_frames(imgs, os.path.join(cfg.model_path, "idu", episode_tag, "render"))
+        return imgs
+
+    def _refine(self, imgs: List[np.ndarray]) -> List[np.ndarray]:
+        """The frames refined with ``idu_refine``, else ``imgs``."""
+        o = self.trainer.opt_cfg
+        if not o.idu_refine:
+            return imgs
+        return self.refiner.run(imgs, n_min=o.idu_flow_edit_n_min, n_max=o.idu_flow_edit_n_max,
+                                n_max_end=o.idu_flow_edit_n_max_end,
+                                n_avg=o.idu_flow_edit_n_avg)
+
+    def _write_depths(self, refined: List[np.ndarray], episode_tag: str):
+        """The refined frames' predicted depths; the frames (with
+        ``idu_refine``) and the depths are written under
+        ``model_path/idu/<tag>/``."""
+        t = self.trainer
+        idu_dir = os.path.join(t.model_cfg.model_path, "idu", episode_tag)
+        if t.opt_cfg.idu_refine:
             _save_frames(refined, os.path.join(idu_dir, "render_refine"))
-        else:
-            refined = imgs
         depths = self.depth_predictor.run(refined)
         np.save(os.path.join(idu_dir, "render_depth.npy"),
                 np.stack(depths).astype(np.float32))
-        return ([np.asarray(img, np.float32) for img in refined],
-                [np.asarray(dep, np.float32) for dep in depths])
+        return [np.asarray(dep, np.float32) for dep in depths]
 
     # ------------------------------------------------------------------
     def train_episode(self, state: TrainState, first_iter: int, targets, elevation,

@@ -26,6 +26,7 @@ Tolerances, and why:
     each camera rendered alone.
 """
 
+import dataclasses
 import os
 import socket
 import subprocess
@@ -44,6 +45,7 @@ from skyfall_gs_tpu.config import OptimizationConfig
 from skyfall_gs_tpu.core.camera import band_camera as jband_camera
 from skyfall_gs_tpu.core.camera import orbit_cameras as jorbit
 from skyfall_gs_tpu.model.gaussians import create_from_points
+from skyfall_gs_tpu.model.render import render as jrender
 from skyfall_gs_tpu.parallel.mesh import make_mesh as jmake_mesh
 from skyfall_gs_tpu.parallel.sharding import make_parallel_train_step as jparallel_step
 from skyfall_gs_tpu.parallel.sharding import make_tile_parallel_render as jtile_render
@@ -132,8 +134,10 @@ def two_ranks():
         jinit(jax.tree.map(jnp.copy, st)), cam_b, jnp.asarray(imgs), jnp.asarray(masks),
         jnp.asarray(depths), jnp.zeros(3), jnp.float32(XYZ_LR), jnp.float32(LAMBDA_OPACITY))
     bands = jax.tree.map(lambda *xs: jnp.stack(xs), *[jband_camera(rcam, k, 2) for k in range(2)])
-    tile_j = np.asarray(jtile_render(jmake_mesh(2))(rst, bands, jnp.zeros(3)))
-    return ts_j, m_j, tile_j, join()
+    frames_j = {"tile": np.asarray(jtile_render(jmake_mesh(2))(rst, bands, jnp.zeros(3))),
+                "full": np.asarray(jrender(rst, rcam, jnp.zeros(3), testing=True,
+                                           inference=True).color)}
+    return ts_j, m_j, frames_j, join()
 
 
 def test_parallel_step_loss_and_metrics_match_jax(two_ranks):
@@ -184,12 +188,17 @@ def test_parallel_step_ranks_are_bit_equal(two_ranks):
 
 
 def test_tile_parallel_render_matches_jax_and_the_full_frame(two_ranks):
-    _, _, tile_j, ranks = two_ranks
+    """The port's bands keep the full frame's clamp window, so its
+    tile-parallel frame is the full frame: within 1e-4 of JAX's full frame
+    and 1e-5 of its own; JAX's tile-parallel frame (bands clamped to their
+    own FoV) within JAX's band bounds of it."""
+    _, _, frames_j, ranks = two_ranks
     tile, full = ranks[0]["tile"], ranks[0]["full"]
     assert tile.shape == (64, 32, 3)
     np.testing.assert_array_equal(ranks[1]["tile"], tile)
-    assert float(np.abs(tile - tile_j).max()) <= 1e-4
-    diff = np.abs(tile - full)
+    assert float(np.abs(tile - frames_j["full"]).max()) <= 1e-4
+    assert float(np.abs(tile - full).max()) <= 1e-5
+    diff = np.abs(tile - frames_j["tile"])
     assert diff.max() < 6e-2 and diff.mean() < 5e-3, (diff.max(), diff.mean())
 
 
@@ -216,7 +225,8 @@ def test_band_camera_matches_jax(rng):
 
 def test_band_renders_are_rows_of_the_full_render(rng):
     """tests/test_train.py:290-311 on the port: each band of 4 within JAX's
-    bounds of the full frame, and the full frame within 1e-4 of JAX's."""
+    bounds of the full frame (and within 1e-5: the port's bands keep the
+    full frame's clamp window), and the full frame within 1e-4 of JAX's."""
     from skyfall_gs_tpu.ops.rasterize import rasterize as jrasterize
     from skyfall_gs_tpu_torch.ops.rasterize import rasterize
     from tests.conftest import make_random_splats, make_test_camera
@@ -233,6 +243,43 @@ def test_band_renders_are_rows_of_the_full_render(rng):
                          backend="reference").color
         diff = np.abs(band.numpy() - full.numpy()[k * 16:(k + 1) * 16])
         assert diff.max() < 6e-2 and diff.mean() < 5e-3, (k, diff.max(), diff.mean())
+        assert diff.max() <= 1e-5, (k, diff.max())
+
+
+def test_band_keeps_the_full_frame_clamp_window():
+    """A wide splat centered in the lower band reaches far into the upper
+    one.  Clamped to the upper band's own FoV (the JAX package's band, and
+    the port's before it kept the window) its conic changes and the band
+    misses the full frame's rows by more than JAX's 6e-2 bound; with the
+    full frame's window the band is the full frame's rows."""
+    from skyfall_gs_tpu_torch.core.camera import clamp_window
+    from skyfall_gs_tpu_torch.ops.rasterize import rasterize
+
+    _, tcam = cameras(32, 64)
+    # the splat's center on the ray through pixel row 56 of 64 (3/4 of the
+    # lower band), 4 units in front of the camera; a long axis in depth
+    # tilted toward y makes the Jacobian's y/z term matter
+    wv = tcam.world_view.numpy().astype(np.float64)
+    ty = (2.0 * 56.5 / 64 - 1.0) * float(tcam.tan_fovy)
+    p_cam = np.array([0.0, ty, 1.0]) * 4.0
+    mean = np.linalg.solve(wv[:3, :3], p_cam - wv[:3, 3])
+    rot = wv[:3, :3].T @ np.array([[1, 0, 0], [0, np.cos(0.6), -np.sin(0.6)],
+                                   [0, np.sin(0.6), np.cos(0.6)]])
+    w = np.sqrt(0.5 * (1.0 + np.trace(rot)))
+    quat = np.array([w, (rot[2, 1] - rot[1, 2]) / (4 * w), (rot[0, 2] - rot[2, 0]) / (4 * w),
+                     (rot[1, 0] - rot[0, 1]) / (4 * w)])
+    args = [torch.tensor(np.asarray(a, np.float32)[None]) for a in
+            (mean, [0.3, 0.4, 3.0], quat, 0.9, [1.0, 0.2, 0.1])]
+    args[3] = args[3].reshape(1)
+    full = rasterize(*args, tcam, bg=torch.zeros(3), backend="reference").color.numpy()
+    band = band_camera(tcam, 0, 2)
+    assert band.clamp_window == tuple(float(v) for v in clamp_window(tcam))
+    kept = rasterize(*args, band, bg=torch.zeros(3), backend="reference").color.numpy()
+    own = rasterize(*args, dataclasses.replace(band, clamp_window=None), bg=torch.zeros(3),
+                    backend="reference").color.numpy()
+    assert float(np.abs(full[:32]).max()) > 0.1            # the splat reaches the upper band
+    assert float(np.abs(own - full[:32]).max()) > 6e-2
+    assert float(np.abs(kept - full[:32]).max()) <= 1e-5
 
 
 # ----------------------------------------------------------------------------
