@@ -35,12 +35,14 @@ Phases, one line each:
      writes a 512 px satellite scene (16 views, 2 held out, 40,000 GT
      points, an init cloud of 13,333, seed 0) to disk, ``cli.train`` trains
      it from disk (1500 iterations, densify every 150 in (300, 1200)) for
-     seeds 0, 1 and 2, ``gen_render_path`` writes a 60-frame 1920x1080
-     orbit, ``render_video`` renders it from the median seed's checkpoint
-     (RGB) and from its fused PLY (depth), and ``create_fused_ply`` writes
-     the fused PLY and a ``.splat``.  It fails on a missing artifact, a
-     non-finite loss or parameter, any overflow, an unlaunched kernel or a
-     median test PSNR under PSNR_FLOOR_DB;
+     seeds 0, 1 and 2, three runs each (the second and third in cli.train
+     processes of their own beside this one), ``gen_render_path`` writes a
+     60-frame 1920x1080 orbit, ``render_video`` renders it from the median
+     seed's checkpoint of this process's runs (RGB) and from its fused PLY
+     (depth), and ``create_fused_ply`` writes the fused PLY and a
+     ``.splat``.  It fails on a missing artifact, a non-finite loss or
+     parameter, any overflow, an unlaunched kernel or a median test PSNR of
+     the nine runs under PSNR_FLOOR_DB;
   7. inference at full width: the 125k-splat stress scene of
      scripts/bench_entry_budget.py over 4 orbit cameras at 1920x1088, FPS
      over 30 frames after 3 warm-up frames, full (measured capacity) and
@@ -152,9 +154,11 @@ raises, and the script exits non-zero without a result.  There is no CPU path.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -183,14 +187,22 @@ SAT_SCENE = dict(size=512, n_points=40_000, n_views=16, seed=0)
 TRAIN_ITERS = 1500
 TRAIN_FLAGS = ["--eval", "--iterations", str(TRAIN_ITERS), "--densify_from_iter", "300",
                "--densification_interval", "150", "--densify_until_iter", "1200"]
-# The JAX package's cli.train on the CPU, on the same 512 px scene (written by
-# write_satellite_scene) with the same flags and seed 0, reached a test PSNR of
-# 28.39 dB (30,321 splats); the floor is that minus 1 dB.  The port's result
-# for one seed varies from run to run by more than that (densify decisions
-# follow gradient sums whose float order differs between runs), so the floor
-# holds the median of three seeds, as phase 5 does.
+# The JAX package's cli.train on the CPU, on the same 512 px scene with the
+# same flags, reached test PSNRs of 28.39, 28.10 and 28.76 dB for seeds 0, 1
+# and 2 (scripts/jax_phase6_reference.py); the floor is their median minus
+# 1 dB.  The port's result for one seed varies from run to run by 0.6-0.9 dB
+# (sd; densify decisions follow gradient sums whose float order differs
+# between runs), so the floor holds the median of SAT_RUNS_PER_SEED runs of
+# each seed: with one run each it failed in 12.5% of draws on unchanged code,
+# with three in 0.8% (scripts/quality_phase6.py, p_gate_fail).  The first
+# run of each seed trains in this process; the others in cli.train processes
+# of their own beside it, SAT_STREAMS of them at a time (training is
+# host-bound, so the streams overlap); their launches are not counted.
 PSNR_FLOOR_DB = 27.39
 SAT_SEEDS = (0, 1, 2)
+SAT_RUNS_PER_SEED = 3
+SAT_STREAMS = 3
+SAT_RUN_TIMEOUT_S = 600.0
 PATH_FLAGS = ["--width", "1920", "--height", "1080", "--num_frame", "60",
               "--elevation", "45", "--radius", "300", "--fov", "60"]
 
@@ -342,12 +354,14 @@ G_SINGLE_RATIO = 0.02
 G_STEPS = 20
 G_GRID_STEPS = 5
 
-# Phase 13: tensor-parallel FLUX.  13a-13c on two gloo ranks sharing cuda:0
+# Phase 13: tensor-parallel FLUX.  13a-13d on two gloo ranks sharing cuda:0
 # (one launch: the shards are built once), 13a also on NCCL at world size
 # min(device_count, 2).  13a holds the sharded fp32 velocity at full width
 # on a TP_CUT-deep model to TP_FP32_REL of the whole one (two summation
 # orders of the row-parallel layers), and FLUX.1-dev in bf16 to 8b's
-# velocity within FLUX_BF16_REL; 13c is 12b's IDU episode with idu_refine on.
+# velocity within FLUX_BF16_REL; 13c is 12b's IDU episode with idu_refine on,
+# 13d the same episode from a single-device Trainer on rank 0 with rank 1
+# serving the refiner.
 TP_CUT = (2, 2)
 TP_FP32_REL = 1e-5
 TP_JOIN_S = 900.0
@@ -721,6 +735,65 @@ def mib(path: Path) -> str:
     return f"{path.stat().st_size / 2**20:.2f} MiB"
 
 
+class GateStream(threading.Thread):
+    """Phase 6's gate runs ``jobs`` ((seed, run) pairs) as ``cli.train``
+    processes, one after another, beside the runs in this process.  Keeps
+    each run's final test PSNR; a run that exits non-zero, logs a non-finite
+    loss or overflows sets ``error``.  ``stop`` kills the running process
+    and starts no other."""
+
+    def __init__(self, index: int, jobs: list, scene_dir: Path, tmp: Path, env: dict):
+        super().__init__(daemon=True)
+        self.index, self.jobs = index, jobs
+        self.scene_dir, self.tmp, self.env = scene_dir, tmp, env
+        self.psnr: list[float] = []
+        self.error: str | None = None
+        self.seconds = 0.0
+        self.proc: subprocess.Popen | None = None
+        self.stopped = False
+
+    def stop(self) -> None:
+        self.stopped = True
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+
+    def run(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            for seed, k in self.jobs:
+                if self.stopped:
+                    raise RuntimeError("stopped")
+                model = self.tmp / f"gate_seed{seed}_run{k}"
+                self.proc = subprocess.Popen(
+                    [sys.executable, "-m", "skyfall_gs_tpu_torch.cli.train", "-s",
+                     str(self.scene_dir), "-m", str(model), *TRAIN_FLAGS, "--device", DEVICE,
+                     "--seed", str(seed), "--test_iterations", str(TRAIN_ITERS), "--quiet"],
+                    env=self.env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+                try:
+                    _, err = self.proc.communicate(timeout=SAT_RUN_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    self.proc.kill()
+                    self.proc.communicate()
+                    raise
+                if self.proc.returncode != 0:
+                    raise RuntimeError(f"seed {seed} exited {self.proc.returncode}: "
+                                       f"{err[-2000:]}")
+                with open(model / "metrics.jsonl") as f:
+                    records = [json.loads(line) for line in f]
+                steps = [r for r in records if r["type"] == "step"]
+                if not steps or not all(np.isfinite([r["loss"], r["psnr"]]).all()
+                                        for r in steps):
+                    raise RuntimeError(f"seed {seed}: non-finite loss")
+                overflow = max(int(r["overflow"]) for r in steps)
+                if overflow:
+                    raise RuntimeError(f"seed {seed}: binning overflow {overflow}")
+                self.psnr.append([r["psnr"] for r in records
+                                  if r["type"] == "eval" and r["split"] == "test"][-1])
+        except Exception as e:   # noqa: BLE001 - reported by the joining phase
+            self.error = f"{type(e).__name__}: {e}"
+        self.seconds = time.perf_counter() - t0
+
+
 def cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
     """Phase 6; returns the kernels' launch counts, and what phase 9 reads:
     the scene directory, the orbit path, the RGB orbit video and the median
@@ -745,42 +818,60 @@ def cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
     assert len(scene.points) == n_init and n_views == (14, 2), (len(scene.points), n_views)
     del scene
 
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    extra = [(seed, k) for k in range(1, SAT_RUNS_PER_SEED) for seed in SAT_SEEDS]
+    streams = [GateStream(i, extra[i::SAT_STREAMS], scene_dir, tmp, env)
+               for i in range(min(SAT_STREAMS, len(extra)))]
+    for stream in streams:
+        stream.start()
     runs = []
-    for seed in SAT_SEEDS:
-        model = tmp / f"model{seed}"
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        trainer, state = train_cli.main(
-            ["-s", str(scene_dir), "-m", str(model), *TRAIN_FLAGS, "--device", DEVICE,
-             "--seed", str(seed), "--test_iterations", str(TRAIN_ITERS), "--save_iterations",
-             str(TRAIN_ITERS), "--checkpoint_iterations", str(TRAIN_ITERS), "--quiet"])
-        torch.cuda.synchronize()
-        t_train = time.perf_counter() - t0
-        with open(model / "metrics.jsonl") as f:
-            records = [json.loads(line) for line in f]
-        steps = [r for r in records if r["type"] == "step"]
-        bad = [r["iter"] for r in steps if not np.isfinite([r["loss"], r["psnr"]]).all()]
-        assert steps and not bad, f"seed {seed}: non-finite loss at iterations {bad[:5]}"
-        for k, v in flat_fields(state.model.params):
-            assert bool(torch.isfinite(v).all()), f"seed {seed}: non-finite parameter {k}"
-        max_overflow = int(trainer.max_overflow)
-        assert max_overflow == 0, f"seed {seed}: binning overflow {max_overflow} in training"
-        with torch.no_grad():
-            ssims = [float(ssim(torch.clamp(trainer._eval_render(state.model, v.camera,
-                                                                  trainer.bg).color, 0, 1)
-                                .permute(2, 0, 1),
-                                torch.tensor(v.image, device=dev).permute(2, 0, 1)))
-                     for v in trainer.scene.test_views]
-        runs.append({
-            "seed": seed, "model": model, "wall": t_train, "ssim": float(np.mean(ssims)),
-            "psnr": [r["psnr"] for r in records
-                     if r["type"] == "eval" and r["split"] == "test"][-1],
-            "it_s": TRAIN_ITERS / steps[-1]["elapsed"], "n_splats": int(state.model.num_alive),
-            "peak": torch.cuda.max_memory_allocated() / 2**30})
-        del trainer, state
-        torch.cuda.empty_cache()
+    try:
+        for seed in SAT_SEEDS:
+            model = tmp / f"model{seed}"
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer, state = train_cli.main(
+                ["-s", str(scene_dir), "-m", str(model), *TRAIN_FLAGS, "--device", DEVICE,
+                 "--seed", str(seed), "--test_iterations", str(TRAIN_ITERS), "--save_iterations",
+                 str(TRAIN_ITERS), "--checkpoint_iterations", str(TRAIN_ITERS), "--quiet"])
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            with open(model / "metrics.jsonl") as f:
+                records = [json.loads(line) for line in f]
+            steps = [r for r in records if r["type"] == "step"]
+            bad = [r["iter"] for r in steps if not np.isfinite([r["loss"], r["psnr"]]).all()]
+            assert steps and not bad, f"seed {seed}: non-finite loss at iterations {bad[:5]}"
+            for k, v in flat_fields(state.model.params):
+                assert bool(torch.isfinite(v).all()), f"seed {seed}: non-finite parameter {k}"
+            max_overflow = int(trainer.max_overflow)
+            assert max_overflow == 0, f"seed {seed}: binning overflow {max_overflow} in training"
+            with torch.no_grad():
+                ssims = [float(ssim(torch.clamp(trainer._eval_render(state.model, v.camera,
+                                                                      trainer.bg).color, 0, 1)
+                                    .permute(2, 0, 1),
+                                    torch.tensor(v.image, device=dev).permute(2, 0, 1)))
+                         for v in trainer.scene.test_views]
+            runs.append({
+                "seed": seed, "model": model, "wall": t_train, "ssim": float(np.mean(ssims)),
+                "psnr": [r["psnr"] for r in records
+                         if r["type"] == "eval" and r["split"] == "test"][-1],
+                "it_s": TRAIN_ITERS / steps[-1]["elapsed"], "n_splats": int(state.model.num_alive),
+                "peak": torch.cuda.max_memory_allocated() / 2**30})
+            del trainer, state
+            torch.cuda.empty_cache()
+    except BaseException:
+        for stream in streams:
+            stream.stop()
+        raise
     train_launches = launches_of(rt)
     med = sorted(runs, key=lambda r: r["psnr"])[len(runs) // 2]
+    for stream in streams:
+        stream.join(SAT_RUN_TIMEOUT_S * len(stream.jobs))
+        assert not stream.is_alive(), f"gate stream {stream.index} still training"
+        assert stream.error is None, f"gate stream {stream.index}: {stream.error}"
+    gate = [r["psnr"] for r in runs] + [p for stream in streams for p in stream.psnr]
+    median_psnr = float(np.median(gate))
 
     # The rest of the chain from the median seed's checkpoint.
     model = med["model"]
@@ -818,9 +909,12 @@ def cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
     log(6, f"CLI chain on [{card}]: wrote the {SAT_SCENE['size']} px satellite scene in "
            f"{t_write:.2f} s; load_scene {t_load:.3f} s, views {n_views[0]} train / "
            f"{n_views[1]} test, init points {n_init}; cli.train seeds "
-           f"{', '.join(str(r['seed']) for r in runs)}: median seed {med['seed']} test PSNR "
-           f"{med['psnr']:.3f} dB (floor {PSNR_FLOOR_DB} dB; per-seed "
-           f"{[round(r['psnr'], 3) for r in runs]}), SSIM {med['ssim']:.4f}, final splats "
+           f"{', '.join(str(r['seed']) for r in runs)} x {SAT_RUNS_PER_SEED}: median test "
+           f"PSNR {median_psnr:.3f} dB (floor {PSNR_FLOOR_DB} dB; this process "
+           f"{[round(r['psnr'], 3) for r in runs]}, the other processes by seed "
+           f"{[(j[0], round(p, 3)) for st in streams for j, p in zip(st.jobs, st.psnr)]} in "
+           f"streams of {[round(st.seconds, 1) for st in streams]} s); this process's median "
+           f"seed {med['seed']} {med['psnr']:.3f} dB, SSIM {med['ssim']:.4f}, final splats "
            f"{med['n_splats']}; from its checkpoint "
            f"{path_kw['--width']}x{path_kw['--height']} x {path_kw['--num_frame']}-frame "
            f"trajectory FPS: checkpoint rgb {fps_ckpt:.2f}, fused PLY "
@@ -828,8 +922,8 @@ def cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
            + ", ".join(f"{k} {mib(p)}" for k, p in artifacts.items())
            + f"; launches fwd {launches['fwd']} bwd {launches['bwd']}; phase 6 took "
              f"{time.perf_counter() - t_phase:.1f} s")
-    assert med["psnr"] >= PSNR_FLOOR_DB, \
-        f"median test PSNR {med['psnr']:.3f} dB under the floor {PSNR_FLOOR_DB}"
+    assert median_psnr >= PSNR_FLOOR_DB, \
+        f"median test PSNR {median_psnr:.3f} dB under the floor {PSNR_FLOOR_DB}"
     return launches, {"scene": scene_dir, "path": path, "rgb": artifacts["ckpt_rgb"],
                       "median": med, "lowest": min(runs, key=lambda r: r["psnr"])}
 
@@ -1706,8 +1800,6 @@ class ViewerClient:
     connection.  Keeps each frame, its verify string and its wall ms."""
 
     def __init__(self, port: int, request):
-        import threading
-
         self.frames, self.verify, self.ms, self.error, self.closed = [], [], [], None, False
         self.thread = threading.Thread(target=self._run, args=(port, request), daemon=True)
         self.thread.start()
@@ -1948,7 +2040,6 @@ def align_ges_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
 def launcher_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
     """10d: launcher jobs train two copies of phase 6's scene (and fail on a
     missing one), then render_videos renders two orbits from each."""
-    import os
     import shutil
 
     from skyfall_gs_tpu_torch.cli import render_videos
@@ -2948,10 +3039,12 @@ def _flux_inputs(torch, handoff: dict, dev):
 
 
 def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -> dict:
-    """13a-13c in one of two gloo ranks sharing cuda:0: the sharded FLUX
+    """13a-13d in one of two gloo ranks sharing cuda:0: the sharded FLUX
     against the whole one (fp32, depth cut) and against 8b's velocity
-    (FLUX.1-dev, bf16), FlowEdit through build_flux_refiner(mesh=...), and an
-    IDU episode on the view mesh with that refiner and MoGe on rank 0."""
+    (FLUX.1-dev, bf16), FlowEdit through build_flux_refiner(mesh=...), an
+    IDU episode on the view mesh with that refiner and MoGe on rank 0, and
+    the same episode from a single-device Trainer on rank 0 while rank 1
+    serves the refiner."""
     import dataclasses
 
     import torch
@@ -2961,6 +3054,7 @@ def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -
     from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.priors.flux import FluxConfig, FluxTransformer, build_module
     from skyfall_gs_tpu_torch.priors.flux_refiner import build_flux_refiner
+    from skyfall_gs_tpu_torch.priors.flux_serve import frames_digest, serve_or_run
     from skyfall_gs_tpu_torch.priors.flux_shard import (
         build_sharded_flux, make_sharded_flux_velocity)
     from skyfall_gs_tpu_torch.priors.flux_vae import VAE, VAEConfig
@@ -3069,6 +3163,52 @@ def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -
     out["idu_end"] = trainer.start_iteration + TP_IDU_OPT["idu_episode_iterations"]
     out["launches"] = launches_of(rt)
     out["peak_gib_13c"] = torch.cuda.max_memory_allocated() / 2**30
+    views_13c = np.stack([v.image for v in views]) if mesh.is_main else None
+    del orch, state, trainer, views
+    torch.cuda.empty_cache()
+
+    # 13d: a single-device Trainer on rank 0 drives the sharded refiner while
+    # rank 1 serves it (priors/flux_serve.py).
+    def single_device_episode(refiner) -> dict:
+        trainer = Trainer(ModelConfig(model_path=str(Path(out_dir) / "single")),
+                          OptimizationConfig(**TP_IDU_OPT), PipelineConfig(), scene, rng_seed=0)
+        state = trainer.init_state(ckpt)
+        orch = IDUOrchestrator(trainer, refiner, pred)
+        renders, views = [], []
+        render, generate = orch._render, orch.generate_idu_views
+
+        def rendered(*a, **k):
+            imgs = render(*a, **k)
+            renders.extend(imgs)
+            return imgs
+
+        def generated(*a, **k):
+            got = generate(*a, **k)
+            views.extend(got)
+            return got
+
+        orch._render, orch.generate_idu_views = rendered, generated
+        reset_launches(rt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orch.run(state, trainer.start_iteration, episodes=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        refined = np.stack([v.image for v in views])
+        return {"wall": wall, "episode": orch.episodes[0], "launches": launches_of(rt),
+                "overflow": max(orch.max_overflow, int(trainer.max_overflow)),
+                "client": dict(orch.client.record),
+                "views_digest": frames_digest([v.image for v in views]),
+                "finite": bool(np.isfinite(refined).all()),
+                "vs_render": float(np.abs(refined - np.stack(renders)).max()),
+                "vs_13c": float(np.abs(refined - views_13c).max()),
+                "end": trainer.start_iteration + TP_IDU_OPT["idu_episode_iterations"]}
+
+    torch.cuda.reset_peak_memory_stats()
+    refiner = build_flux_refiner(transformer=flux, vae=vae, cfg=cfg, vae_cfg=vcfg, mesh=tp)
+    got = serve_or_run(refiner, single_device_episode, refiner)
+    out["single"] = got if mesh.is_main else {"served": got}
+    out["peak_gib_13d"] = torch.cuda.max_memory_allocated() / 2**30
     return out
 
 
@@ -3102,7 +3242,8 @@ def flux_nccl_rank(mesh, handoff: dict) -> dict:
 
 
 def flux_tp_phase(torch, card: str, tmp: Path, sat: dict, handoff: dict) -> dict:
-    """Phase 13; returns the kernels' launch counts of every rank (13c)."""
+    """Phase 13; returns the kernels' launch counts of every rank (13c and
+    13d)."""
     from skyfall_gs_tpu_torch.parallel.mesh import launch
     from skyfall_gs_tpu_torch.priors.flux import FluxConfig
     from skyfall_gs_tpu_torch.priors.flux_shard import count_flux_params
@@ -3123,7 +3264,7 @@ def flux_tp_phase(torch, card: str, tmp: Path, sat: dict, handoff: dict) -> dict
     gather_bytes = (12 * cfg.depth_double + 3 * cfg.depth_single) * b * cfg.hidden // 2 * 2
     ckpt = str(sat["median"]["model"] / f"chkpnt{TRAIN_ITERS}.npz")
 
-    # -- 13a-13c: two gloo ranks sharing cuda:0 ---------------------------------
+    # -- 13a-13d: two gloo ranks sharing cuda:0 ---------------------------------
     t0 = time.perf_counter()
     res = launch(flux_tp_rank, 2, (handoff, str(sat["scene"]), ckpt, str(tmp / "p13")),
                  device=f"{DEVICE}:0", backend="gloo", timeout_s=P_TIMEOUT_S,
@@ -3185,7 +3326,7 @@ def flux_tp_phase(torch, card: str, tmp: Path, sat: dict, handoff: dict) -> dict
                f"ranks {len({x['idu_views_digest'] for x in res}) == 1}, render_refine/ "
                f"{len(written)} PNGs; peak memory per rank "
                f"{max(x['peak_gib_13c'] for x in res):.2f} GiB; launches (both ranks) fwd "
-               f"{launches['fwd']} bwd {launches['bwd']}; 13a-13c {wall:.1f} s with the ranks' "
+               f"{launches['fwd']} bwd {launches['bwd']}; 13a-13d {wall:.1f} s with the ranks' "
                f"start")
     assert all(x["idu_overflow"] == 0 for x in res)
     assert len({x["idu_views_digest"] for x in res}) == 1
@@ -3193,6 +3334,31 @@ def flux_tp_phase(torch, card: str, tmp: Path, sat: dict, handoff: dict) -> dict
     assert (tmp / "p13" / "idu" / f"chkpnt{r0['idu_end']}.npz").is_file()
     for x in res:
         assert x["launches"]["fwd"] > 0 and x["launches"]["bwd"] > 0, x["launches"]
+
+    one, served = r0["single"], res[1]["single"]["served"]
+    ep = one["episode"]
+    sent = one["client"]
+    add_launches(launches, [one["launches"]])
+    log("13d", f"the same episode from a single-device Trainer on rank 0 of the 2 gloo ranks "
+               f"sharing [{card}], rank 1 serving the sharded FLUX.1-dev (serve_or_run): "
+               f"{one['wall']:.2f} s (views rendered, refined on both ranks and "
+               f"depth-predicted in {ep['views_s']:.2f} s, training {ep['train_s']:.2f} s), "
+               f"overflow {one['overflow']}; the client broadcast {sent['commands']} command(s), "
+               f"{sent['frames']} frames, {sent['bytes']:,} bytes of frames; rank 1 stopped after "
+               f"{served['commands']} command(s) and {served['heartbeats']} heartbeats, its "
+               f"frames bit-equal to rank 0's {served['digests'] == sent['digests']}; refined "
+               f"frames finite {one['finite']}, max abs from the renders {one['vs_render']:.3e}; "
+               f"views against 13c's (the same orbit draws): max abs {one['vs_13c']:.3e}, "
+               f"equal {one['vs_13c'] == 0.0}; peak memory per rank "
+               f"{max(x['peak_gib_13d'] for x in res):.2f} GiB (rank 0 "
+               f"{r0['peak_gib_13d']:.2f}, rank 1 {res[1]['peak_gib_13d']:.2f}); launches fwd "
+               f"{one['launches']['fwd']} bwd {one['launches']['bwd']}")
+    assert one["overflow"] == 0, one["overflow"]
+    assert served["commands"] == sent["commands"] == 1, (served, sent)
+    assert served["digests"] == sent["digests"] == [one["views_digest"]]
+    assert one["finite"] and one["vs_render"] > 1e-3, one["vs_render"]
+    assert (tmp / "p13" / "single" / f"chkpnt{one['end']}.npz").is_file()
+    assert one["launches"]["fwd"] > 0 and one["launches"]["bwd"] > 0, one["launches"]
 
     # -- 13a on NCCL, one rank per GPU ----------------------------------------------
     n_gpus = torch.cuda.device_count()
@@ -3236,6 +3402,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(DEVICE)
+    t_start = time.perf_counter()
+    seconds = {}   # phase -> wall s, printed near the end where the tail keeps it
+
+    def lap(phase: str) -> None:
+        seconds[phase] = time.perf_counter() - t_start - sum(seconds.values())
 
     from skyfall_gs_tpu_torch.config import OptimizationConfig
     from skyfall_gs_tpu_torch.model.gaussians import flat_fields
@@ -3399,10 +3570,12 @@ def main() -> int:
     assert r["loss_rel"] <= 1e-4, r["loss_rel"]
     assert r["grad_rel"][r["worst"]] <= 1e-3, r["grad_rel"]
 
+    lap("1-4")
     # -- phase 5: the Trainer on the quality scene ------------------------------
     counts, q_seed0 = quality_phase(torch, rt, dev, card)
     for k, n in counts.items():
         launches[k] += n
+    lap("5")
 
     with tempfile.TemporaryDirectory(prefix="skyfall_cli_") as tmp:
         # -- phase 6: the CLI chain on a scene read from disk ---------------------
@@ -3410,41 +3583,49 @@ def main() -> int:
         for k, n in counts.items():
             launches[k] += n
         torch.cuda.empty_cache()
+        lap("6")
 
         # -- phase 7: inference at full width -------------------------------------
         counts, fwd_err_1080p = stress_phase(torch, rt, dev, card)
         for k, n in counts.items():
             launches[k] += n
         torch.cuda.empty_cache()
+        lap("7")
 
         # -- phase 8: Stage 2 on phase 6's scene ----------------------------------
         counts, handoff = stage2_phase(torch, rt, dev, card, Path(tmp))
         for k, n in counts.items():
             launches[k] += n
+        lap("8")
 
         # -- phase 9: the evaluation suites and the LPIPS loss ----------------------
         for k, n in eval_phase(torch, rt, dev, card, Path(tmp), sat, q_seed0).items():
             launches[k] += n
         torch.cuda.empty_cache()
+        lap("9")
 
         # -- phase 10: the viewer, align_ges, the launcher and render_videos ------
         for k, n in tools_phase(torch, rt, dev, card, Path(tmp), sat).items():
             launches[k] += n
         torch.cuda.empty_cache()
+        lap("10")
 
         # -- phase 11: view-parallel training ----------------------------------------
         for k, n in parallel_phase(torch, rt, dev, card, Path(tmp), sat, med).items():
             launches[k] += n
         torch.cuda.empty_cache()
+        lap("11")
 
         # -- phase 12: gaussian-sharded training --------------------------------------
         for k, n in gauss_phase(torch, rt, dev, card, Path(tmp), sat, med).items():
             launches[k] += n
         torch.cuda.empty_cache()
+        lap("12")
 
         # -- phase 13: tensor-parallel FLUX ---------------------------------------------
         for k, n in flux_tp_phase(torch, card, Path(tmp), sat, handoff).items():
             launches[k] += n
+        lap("13")
 
     # No single PyTorch call composites depth-sorted splats: library_ms null.
     kernels = [
@@ -3464,6 +3645,8 @@ def main() -> int:
         f"{k['name']} {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
         f"(share {k['bound_ms'] / k['ms']:.3f}), plain {k['plain_ms']:.1f} ms, launches "
         f"{k['launches']}, ptxas {ptxas[k['name'][-3:]]}" for k in kernels), flush=True)
+    print(f"phase seconds on [{card}]: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; all {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

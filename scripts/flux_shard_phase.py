@@ -4,11 +4,11 @@
 
 Builds the compositing kernels, writes phase 6's 512 px satellite scene,
 trains one ``cli.train`` seed on it (1500 iterations, its checkpoint for
-13c's IDU episode), renders two 1024^2 orbit views from that checkpoint
+the IDU episodes of 13c and 13d), renders two 1024^2 orbit views from that checkpoint
 (elevation 85, radius 300: the first jax_v1 episode's ring), runs
 ``chip_smoke.flux_phase`` (8b) on them for the unsharded FLUX.1-dev's
 velocity and refined frames, frees that model, then runs
-``chip_smoke.flux_tp_phase``: 13a-13c on two gloo ranks sharing cuda:0
+``chip_smoke.flux_tp_phase``: 13a-13d on two gloo ranks sharing cuda:0
 and 13a on NCCL at min(device_count, 2) ranks.  Prints the card's name and
 power limit first.  Exits non-zero without a GPU or when a gate of phase 8b
 or 13 fails.

@@ -62,8 +62,10 @@ ENV_NUM_PROCESSES = "SKYFALL_NUM_PROCESSES"
 ENV_PROCESS_ID = "SKYFALL_PROCESS_ID"
 
 DEFAULT_TIMEOUT_S = 300.0   # every collective, and every wait for rank 0's heartbeat
-HEARTBEAT_S = 1.0           # rank 0's heartbeat period inside on_main
-_WORKING, _DONE, _FAILED = 0, 1, 2
+HEARTBEAT_S = 1.0           # rank 0's heartbeat period (on_main, a refiner's client)
+# Flags rank 0 broadcasts on a host group: on_main's heartbeat and end, and
+# the commands of a sharded refiner's client (priors/flux_serve.py).
+_WORKING, _DONE, _FAILED, _REFINE = 0, 1, 2, 3
 
 
 def pod_config(coordinator_address: Optional[str] = None,

@@ -63,17 +63,32 @@ episode's checkpoint is a ``chkpnt<it>.orbax`` directory every rank writes
 its rows into (``train/checkpoint_sharded.py``).
 
 A sharded refiner (``build_flux_refiner(mesh=...)``, ``refiner.mesh``)
-needs every rank of its mesh inside ``run``, so on such a Trainer (view or
-gauss, whose mesh must hold the same ranks) view generation takes three
-steps: rank 0 renders and writes the frames while the others wait, the
-frames are broadcast, every rank refines them, then rank 0 saves the
-refined frames, predicts their depth and writes it while the others wait.
-The JAX package's single controller can drive a sharded refiner from a
-single-device Trainer; here that raises ``ValueError``.
+needs every rank of its mesh inside ``run``.  It runs two ways:
+
+  * under a single-device Trainer (``trainer.mesh`` None), as the JAX
+    package's single controller does: the Trainer, the depth predictor and
+    the orchestrator live on rank 0 of the refiner's mesh, while ranks
+    1..tp-1 sit in ``priors.flux_serve.serve_refiner``
+    (``priors.flux_serve.serve_or_run`` makes the split).  Rank 0 reaches
+    the refiner through its client (``self.client``), which ``run`` enters
+    around the curriculum: each refine broadcasts the frames on the mesh's
+    host group and every rank refines them, and a heartbeat keeps the
+    serving ranks waiting while rank 0 trains.  Leaving the client stops
+    them, or fails them when an exception leaves ``run``.  A
+    ``generate_idu_views`` call outside ``run`` goes inside an explicit
+    ``with orch.client:``.  On any other rank the orchestrator raises
+    ``ValueError``;
+  * on a Trainer mesh (view or gauss) of the same ranks, view generation
+    takes three steps: rank 0 renders and writes the frames while the
+    others wait, the frames are broadcast, every rank refines them, then
+    rank 0 saves the refined frames, predicts their depth and writes it
+    while the others wait.  A Trainer mesh of other ranks raises
+    ``ValueError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass
@@ -88,6 +103,7 @@ from skyfall_gs_tpu_torch.io.png import write_png
 from skyfall_gs_tpu_torch.io.scene import View, stack_views
 from skyfall_gs_tpu_torch.model.gaussians import camera_filter_arrays, reset_opacity
 from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
+from skyfall_gs_tpu_torch.priors.flux_serve import serving_client
 from skyfall_gs_tpu_torch.train.checkpoint import save_checkpoint
 from skyfall_gs_tpu_torch.train.checkpoint_sharded import save_checkpoint_sharded
 from skyfall_gs_tpu_torch.train.loop import Trainer
@@ -111,11 +127,16 @@ class IDUOrchestrator:
     def __post_init__(self):
         tp = getattr(self.refiner, "mesh", None)
         mesh = self.trainer.mesh
-        if tp is not None and (mesh is None or mesh.global_ranks() != tp.global_ranks()):
+        if tp is not None and mesh is not None and mesh.global_ranks() != tp.global_ranks():
             raise ValueError(
-                "a sharded refiner (refiner.mesh set) runs on every rank of its mesh: train "
-                "with Trainer(mesh=<a mesh of the same ranks>) (mesh_mode 'view' or "
-                "'gauss'); a single-device Trainer or a mesh of other ranks cannot drive it")
+                "a sharded refiner (refiner.mesh set) under a Trainer mesh runs on every rank "
+                "of it: train with Trainer(mesh=<a mesh of the same ranks>), or with a "
+                "single-device Trainer on rank 0 of the refiner's mesh while the other ranks "
+                "call priors.flux_serve.serve_refiner(refiner)")
+        # A single-device Trainer reaches the refiner through its client (rank 0
+        # driving the serving ranks of a sharded one; it raises ValueError on any
+        # other rank); on a Trainer mesh every rank calls the refiner itself.
+        self.client = serving_client(self.refiner) if mesh is None else None
         self.max_overflow = 0    # the largest overflow of any IDU render or step
         # Per episode: the orbit set (views, size, binning capacity,
         # overflow, host ms per render between two synchronizations, mean
@@ -224,9 +245,9 @@ class IDUOrchestrator:
         o = self.trainer.opt_cfg
         if not o.idu_refine:
             return imgs
-        return self.refiner.run(imgs, n_min=o.idu_flow_edit_n_min, n_max=o.idu_flow_edit_n_max,
-                                n_max_end=o.idu_flow_edit_n_max_end,
-                                n_avg=o.idu_flow_edit_n_avg)
+        refiner = self.client or self.refiner
+        return refiner.run(imgs, n_min=o.idu_flow_edit_n_min, n_max=o.idu_flow_edit_n_max,
+                           n_max_end=o.idu_flow_edit_n_max_end, n_avg=o.idu_flow_edit_n_avg)
 
     def _write_depths(self, refined: List[np.ndarray], episode_tag: str):
         """The refined frames' predicted depths; the frames (with
@@ -384,8 +405,9 @@ class IDUOrchestrator:
         else:
             plan = [(list(cur.elevation_list), list(cur.radius_list))] * 5
         it = first_iter
-        for elevation, radius in plan[:episodes or None]:
-            print(f"[IDU] episode elevation={elevation} radius={radius}", flush=True)
-            state = self.train_episode(state, it, targets, elevation, radius, cur.fov)
-            it += o.idu_episode_iterations
+        with self.client or contextlib.nullcontext():
+            for elevation, radius in plan[:episodes or None]:
+                print(f"[IDU] episode elevation={elevation} radius={radius}", flush=True)
+                state = self.train_episode(state, it, targets, elevation, radius, cur.fov)
+                it += o.idu_episode_iterations
         return state

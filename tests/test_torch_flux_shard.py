@@ -29,6 +29,7 @@ Tolerances, and why:
     range, Adam's opacity moment 1e-3 norm-relative).
 """
 
+import dataclasses
 import types
 
 import jax
@@ -36,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.sharding import Mesh
 
 from skyfall_gs_tpu.priors import flux as jf
@@ -302,8 +304,9 @@ def test_sharded_refiner_matches_jax_with_equal_conditions(runs):
 
 def test_get_refiner_passes_the_mesh_through(tmp_path):
     """``get_refiner("flowedit", mesh=...)`` builds the sharded refiner in
-    ``dtype`` (float32 by default on the CPU); a sharded refiner under a
-    single-device Trainer raises."""
+    ``dtype`` (float32 by default on the CPU); a single-device Trainer takes
+    it (at tp = 1 its client runs the refiner locally), and raises where
+    that Trainer would sit off rank 0 of the refiner's mesh."""
     from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
     from skyfall_gs_tpu_torch.priors import RenderDepthPredictor
     from skyfall_gs_tpu_torch.train.loop import Trainer
@@ -327,8 +330,11 @@ def test_get_refiner_passes_the_mesh_through(tmp_path):
                                   "cpu")
         t = Trainer(ModelConfig(model_path=str(tmp_path / "m")),
                     OptimizationConfig(**IDU_OPT), PipelineConfig(), scene)
-        with pytest.raises(ValueError, match="sharded refiner"):
-            IDUOrchestrator(t, ref, RenderDepthPredictor())
+        orch = IDUOrchestrator(t, ref, RenderDepthPredictor())
+        assert orch.client.refiner is ref and orch.client.mesh is None
+        bf16.mesh = dataclasses.replace(mesh, rank=1, size=2)   # rank 1 of two: it serves
+        with pytest.raises(ValueError, match="serve_refiner"):
+            IDUOrchestrator(t, bf16, RenderDepthPredictor())
     finally:
         torch.distributed.destroy_process_group()
 
@@ -354,3 +360,71 @@ def test_idu_episode_with_a_sharded_refiner(runs):
     span = float(xyz.max() - xyz.min())
     assert float(np.abs(a["params"]["xyz"] - xyz).max()) <= 1e-3 * span
     assert rel(a["mu"]["opacity"], b["mu"]["opacity"]) <= 1e-3
+
+
+def _row_parallel(name: str) -> bool:
+    """Whether the module ``name`` is a row-parallel layer of the shard plan."""
+    m = fs._BLOCK_KEY.match(name + ".weight")
+    return m is not None and (m.group(2) in fs.ROW_LAYERS
+                              or (m.group(1) is not None and m.group(2) == "proj_out"))
+
+
+def _block_outputs(model, tok, ids, cond, t) -> list:
+    """Every block's output (the image and text streams of a double block)
+    in order, then the velocity."""
+    outs = []
+    hooks = [blk.register_forward_hook(lambda mod, a, out: outs.append(
+        tuple(out) if isinstance(out, tuple) else (out,)))
+        for blk in [*model.transformer_blocks, *model.single_transformer_blocks]]
+    try:
+        outs.append((model(tok, ids, cond, t),))
+    finally:
+        for h in hooks:
+            h.remove()
+    return outs
+
+
+def test_tp1_bf16_gap_is_the_matmul_then_bias_swap(tmp_path):
+    """NCCL at tp = 1 comes out 1.56e-2-1.60e-2 from the whole bf16 model on
+    the card.  Block by block in bf16 on the CPU, a tp = 1
+    ``ShardedFluxTransformer`` on a 1-rank gloo mesh is bit-equal to a
+    ``FluxTransformer`` whose row-parallel layers compute the matmul and then
+    add the bias, in place of ``F.linear``'s fused ``addmm``: its gap to the
+    whole model is that swap's alone.  The biases are drawn non-zero, so the
+    swap changes bits."""
+    cfg = tf.FluxConfig(**tp_config()._asdict())
+    whole = tf.build_module(tf.FluxTransformer, cfg, dtype=torch.bfloat16, device="cpu",
+                            seed=0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in whole.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    swapped = tf.build_module(tf.FluxTransformer, cfg, dtype=torch.bfloat16, device="cpu",
+                              seed=None)
+    swapped.load_state_dict(whole.state_dict())
+    rows = [mod for name, mod in swapped.named_modules() if _row_parallel(name)]
+    assert len(rows) == 4 * cfg.depth_double + cfg.depth_single
+    for mod in rows:
+        mod.forward = types.MethodType(lambda self, x: F.linear(x, self.weight) + self.bias,
+                                       mod)
+    tok, ids, cond = _inputs(tp_config(), np.random.default_rng(0), b=2)
+    tok, ids = torch.from_numpy(np.array(tok)), torch.from_numpy(np.array(ids))
+    cond = tf.FluxCond(torch.from_numpy(np.array(cond.txt)),
+                       torch.from_numpy(np.array(cond.pooled)), cond.guidance)
+    mesh = tmesh.make_mesh(1, axis="tp", backend="gloo", device="cpu", rank=0,
+                           init_method=f"file://{tmp_path / 'rendezvous'}")
+    try:
+        sharded = fs.shard_flux_params(whole, mesh, cfg, dtype=torch.bfloat16)
+        got = _block_outputs(sharded, tok, ids, cond, 0.7)
+    finally:
+        torch.distributed.destroy_process_group()
+    want = _block_outputs(swapped, tok, ids, cond, 0.7)
+    fused = _block_outputs(whole, tok, ids, cond, 0.7)
+    assert len(got) == len(want) == cfg.depth_double + cfg.depth_single + 1
+    gaps = []
+    for i, (g, w, f) in enumerate(zip(got, want, fused)):
+        for a, b, c in zip(g, w, f):
+            assert torch.equal(a, b), f"block {i}"
+            gaps.append(rel(a.float(), c.float()))
+    assert 0.0 < max(gaps) <= 3e-2, gaps
