@@ -1,0 +1,18 @@
+"""Share of their roofline that the forward compositing kernel reaches: the least
+time the traced frames' compositing needs (``frozen/work.py``
+``composite_bounds``: operations over the fp32 peak or bytes over HBM, the
+larger, from the reference's own binning of the same splats and cameras)
+over the kernel's device time in the trace."""
+import re
+
+KERNEL = re.compile(r"(^|[\s:])fwd_kernel\b")
+
+
+def read(run):
+    t, w = run.trace, run.work
+    if t is None or not w:
+        return None
+    s = t.kernel_s(lambda n: KERNEL.search(n) is not None)
+    if s <= 0:
+        return None
+    return 100.0 * (w["bound_s"]["fwd"] + w["bound_s"]["bwd"]) / s

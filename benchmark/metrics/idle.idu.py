@@ -1,0 +1,8 @@
+"""Idle share of the device over one whole traced view-generation call."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0 or not t.device_ops:
+        return None
+    return 100.0 * (1.0 - t.busy_s() / t.window_s)

@@ -1,0 +1,10 @@
+"""Host-clock ms per view of MoGe depth (the depth predictor's run),
+from the benchmark's spans around that call over the window's calls."""
+
+
+def read(run):
+    s = run.spans.get("moge")
+    n = run.work.get("window_views") if run.work else None
+    if not s or not n:
+        return None
+    return 1e3 * sum(s) / n
