@@ -1,0 +1,14 @@
+"""Device ms per frame of the program's span ``render.bin`` (``ops/binning.py``
+``bin_gaussians``: entry keys, their sort and the tile ranges), from
+``skyfall_gs_tpu_torch.utils.trace.report()`` over the traced frames."""
+
+
+def read(run):
+    try:
+        from skyfall_gs_tpu_torch.utils.trace import report
+    except ImportError:         # a program without the tracer
+        return None
+    s = report()["spans"].get("render.bin")
+    if s is None or run.trace is None:
+        return None
+    return 1e3 * s["device_s"] / run.trace.units

@@ -93,7 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="stop Stage 2 after this many curriculum episodes, a cut "
                              "for smoke runs (0: the whole curriculum)")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="write a torch.profiler chrome trace of ~20 steps here")
+                        help="write a torch.profiler chrome trace of 20 steps, with the "
+                             "program's spans, here; their totals go to metrics.jsonl")
     parser.add_argument("--gui_ip", type=str, default="127.0.0.1")
     parser.add_argument("--gui_port", type=int, default=0,
                         help="enable the SIBR viewer bridge on this port")

@@ -23,6 +23,7 @@ from skyfall_gs_tpu_torch.model.gaussians import (
     scaling_with_3d_filter,
 )
 from skyfall_gs_tpu_torch.ops.rasterize import RenderOutput, rasterize
+from skyfall_gs_tpu_torch.utils.trace import span
 
 
 def _activated(state: GaussianModelState, with_3d_filter: bool):
@@ -63,6 +64,7 @@ def measure_bin_capacity(
     return capacity_for_entries(int(counts.max()))
 
 
+@span("render.colors")
 def compute_colors(state: GaussianModelState, camera: Camera, testing: bool = False,
                    appearance_embedding: Optional[torch.Tensor] = None,
                    override_color: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -90,6 +92,7 @@ def compute_colors(state: GaussianModelState, camera: Camera, testing: bool = Fa
     return torch.clamp_min(eval_sh(state.active_sh_degree, sh, dirs) + 0.5, 0.0)
 
 
+@span("render")
 def render(
     state: GaussianModelState,
     camera: Camera,

@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from skyfall_gs_tpu_torch.utils import trace
+
 TILE = 16  # pixels per tile side; 16 x 16 = 256 pixels = one thread block
 
 
@@ -90,6 +92,7 @@ def capacity_for_entries(worst_entries: int) -> int:
     return max(-(-int(worst_entries * 1.2) // bucket) * bucket, bucket)
 
 
+@trace.span("render.bin")
 def bin_gaussians(
     mean2d: torch.Tensor,
     depth: torch.Tensor,
@@ -119,6 +122,9 @@ def bin_gaussians(
     cum_incl = torch.cumsum(count, 0)
     total = cum_incl[-1] if n > 0 else torch.zeros((), dtype=torch.int64, device=dev)
     n_live = torch.clamp_max(total, cap)
+    # Entries the view asks for against the keys sorted for it (all ``cap``).
+    trace.count("render.entries", total)
+    trace.count("render.sorted", cap)
 
     # Entry e belongs to the first splat whose inclusive prefix exceeds e;
     # its rank inside that splat's rectangle gives the tile.

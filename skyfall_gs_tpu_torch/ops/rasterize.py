@@ -31,6 +31,10 @@ from skyfall_gs_tpu_torch.ops.projection import (
 )
 from skyfall_gs_tpu_torch.ops.rasterize_ref import composite_reference
 from skyfall_gs_tpu_torch.ops.rasterize_tiled import composite_tiled
+from skyfall_gs_tpu_torch.utils.trace import span
+
+_PROJECT = span("render.project")
+_COMPOSITE = span("render.composite")
 
 
 @dataclass
@@ -127,10 +131,11 @@ def rasterize(
             ``bin_capacity=None`` the capacity is the budget rounded up to
             256, so nothing overflows.
     """
-    proj = project_gaussians(
-        means3d, scales, quats, opacities, camera,
-        kernel_size=kernel_size, mask=mask, scaling_modifier=scaling_modifier,
-    )
+    with _PROJECT:
+        proj = project_gaussians(
+            means3d, scales, quats, opacities, camera,
+            kernel_size=kernel_size, mask=mask, scaling_modifier=scaling_modifier,
+        )
     if entry_budget is not None:
         if not inference:
             raise ValueError("entry_budget is an inference-only LOD mode; "
@@ -147,26 +152,27 @@ def rasterize(
     else:
         normals = torch.zeros_like(means3d)
 
-    # Blend channels: [r, g, b, depth, nx, ny, nz]
-    channels = torch.cat([colors, proj.depth[:, None], normals], dim=-1)
+    with _COMPOSITE:
+        # Blend channels: [r, g, b, depth, nx, ny, nz]
+        channels = torch.cat([colors, proj.depth[:, None], normals], dim=-1)
 
-    overflow = None
-    if backend == "reference":
-        out, t_final = composite_reference(
-            mean2d, proj.conic, proj.depth, proj.radius, proj.opacity,
-            channels, camera.height, camera.width, subpixel_offset)
-    elif backend == "tiled":
-        out, t_final, overflow = composite_tiled(
-            mean2d, proj.conic, proj.depth, proj.radius, proj.opacity,
-            channels, camera.height, camera.width,
-            subpixel_offset=subpixel_offset,
-            mean2d_abs_dummy=mean2d_abs_dummy,
-            cap=bin_capacity,
-            inference=inference,
-            radius_xy=proj.radius_xy,
-        )
-    else:
-        raise ValueError(f"unknown rasterize backend: {backend}")
+        overflow = None
+        if backend == "reference":
+            out, t_final = composite_reference(
+                mean2d, proj.conic, proj.depth, proj.radius, proj.opacity,
+                channels, camera.height, camera.width, subpixel_offset)
+        elif backend == "tiled":
+            out, t_final, overflow = composite_tiled(
+                mean2d, proj.conic, proj.depth, proj.radius, proj.opacity,
+                channels, camera.height, camera.width,
+                subpixel_offset=subpixel_offset,
+                mean2d_abs_dummy=mean2d_abs_dummy,
+                cap=bin_capacity,
+                inference=inference,
+                radius_xy=proj.radius_xy,
+            )
+        else:
+            raise ValueError(f"unknown rasterize backend: {backend}")
 
     color = out[..., :3] + t_final[..., None] * bg[None, None, :]
     alpha = 1.0 - t_final

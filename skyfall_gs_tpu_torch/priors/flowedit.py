@@ -37,6 +37,11 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from skyfall_gs_tpu_torch.utils.trace import span
+
+# One span per ODE step: the two velocity evaluations of each noise draw.
+_STEP = span("flowedit.step")
+
 
 def _timesteps(num_steps: int, sigmas, device) -> torch.Tensor:
     if sigmas is None:
@@ -86,9 +91,10 @@ def flow_edit_ode(
     ts = _timesteps(num_steps, sigmas, x_src.device)
     z = x_src.clone()
     for k in range(num_steps - n_max, num_steps - n_min):
-        t, t_next = ts[k], ts[k + 1]
-        z = z + (t_next - t) * _delta_v(velocity_fn, x_src, z, t, src_cond, tar_cond,
-                                        generator, n_avg)
+        with _STEP:
+            t, t_next = ts[k], ts[k + 1]
+            z = z + (t_next - t) * _delta_v(velocity_fn, x_src, z, t, src_cond, tar_cond,
+                                            generator, n_avg)
     return z
 
 
@@ -123,10 +129,11 @@ def flow_edit_ode_batch(
         (-1,) + (1,) * (x_src.ndim - 1))
     z = x_src.clone()
     for k in range(num_steps - n_max, num_steps - n_min):
-        t, t_next = ts[k], ts[k + 1]
-        active = (k >= num_steps - nmax).to(x_src.dtype)
-        dv = _delta_v(velocity_fn, x_src, z, t, src_cond, tar_cond, generator, n_avg)
-        z = z + active * (t_next - t) * dv
+        with _STEP:
+            t, t_next = ts[k], ts[k + 1]
+            active = (k >= num_steps - nmax).to(x_src.dtype)
+            dv = _delta_v(velocity_fn, x_src, z, t, src_cond, tar_cond, generator, n_avg)
+            z = z + active * (t_next - t) * dv
     return z
 
 
@@ -227,11 +234,14 @@ class FlowEditRefiner:
                 sel = idxs[i:i + self.batch_size]
                 x = torch.stack([torch.as_tensor(np.asarray(images[j], np.float32))
                                  for j in sel]).to(self.device)
-                z = enc(x)
+                with span("flowedit.encode"):
+                    z = enc(x)
                 z2 = flow_edit_ode_batch(vel, z, self.src_cond, self.tar_cond,
                                          self.generator(z.device), [nms[j] for j in sel],
                                          num_steps=self.num_steps, n_min=n_min,
                                          n_max=window, n_avg=n_avg, sigmas=sig)
-                for j, im_out in zip(sel, dec(z2).float().cpu().numpy()):
+                with span("flowedit.decode"):
+                    x_out = dec(z2)
+                for j, im_out in zip(sel, x_out.float().cpu().numpy()):
                     out[j] = im_out
         return out

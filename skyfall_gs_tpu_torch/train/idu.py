@@ -109,13 +109,17 @@ from skyfall_gs_tpu_torch.train.checkpoint_sharded import save_checkpoint_sharde
 from skyfall_gs_tpu_torch.train.loop import Trainer
 from skyfall_gs_tpu_torch.train.step import TrainState, make_eval_render
 from skyfall_gs_tpu_torch.utils.general import expon_lr_schedule
+from skyfall_gs_tpu_torch.utils.trace import span
+
+_WRITE = span("idu.write")
 
 
 def _save_frames(frames: Sequence[np.ndarray], path: str) -> None:
     os.makedirs(path, exist_ok=True)
     for i, f in enumerate(frames):
-        arr = np.clip(np.asarray(f) * 255.0 + 0.5, 0, 255).astype(np.uint8)
-        write_png(os.path.join(path, f"{i:05d}.png"), arr)
+        with _WRITE:
+            arr = np.clip(np.asarray(f) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+            write_png(os.path.join(path, f"{i:05d}.png"), arr)
 
 
 @dataclass
@@ -206,6 +210,7 @@ class IDUOrchestrator:
         refined = self._refine(self._render(state, cams, episode_tag))
         return refined, self._write_depths(refined, episode_tag)
 
+    @span("idu.render")
     def _render(self, state: TrainState, cams: list, episode_tag: str) -> List[np.ndarray]:
         """The view set's frames for ``cams`` (the fixed test embedding
         unless random_ap), written under ``model_path/idu/<tag>/render/``;
@@ -240,6 +245,7 @@ class IDUOrchestrator:
         _save_frames(imgs, os.path.join(cfg.model_path, "idu", episode_tag, "render"))
         return imgs
 
+    @span("idu.refine")
     def _refine(self, imgs: List[np.ndarray]) -> List[np.ndarray]:
         """The frames refined with ``idu_refine``, else ``imgs``."""
         o = self.trainer.opt_cfg
@@ -257,9 +263,11 @@ class IDUOrchestrator:
         idu_dir = os.path.join(t.model_cfg.model_path, "idu", episode_tag)
         if t.opt_cfg.idu_refine:
             _save_frames(refined, os.path.join(idu_dir, "render_refine"))
-        depths = self.depth_predictor.run(refined)
-        np.save(os.path.join(idu_dir, "render_depth.npy"),
-                np.stack(depths).astype(np.float32))
+        with span("idu.depth"):
+            depths = self.depth_predictor.run(refined)
+        with _WRITE:
+            np.save(os.path.join(idu_dir, "render_depth.npy"),
+                    np.stack(depths).astype(np.float32))
         return [np.asarray(dep, np.float32) for dep in depths]
 
     # ------------------------------------------------------------------
@@ -317,60 +325,62 @@ class IDUOrchestrator:
         sync()
         t1 = time.perf_counter()
         for iteration in range(first_iter + 1, end_iter + 1):
-            if cooldown is not None:
-                if cooldown > 0:
-                    cooldown -= 1
+            with span("train.iteration", iteration):
+                if cooldown is not None:
+                    if cooldown > 0:
+                        cooldown -= 1
+                    else:
+                        cooldown = None
+                        lambda_opacity = o.lambda_opacity
+                use_idu, g, i = draw(iteration)
+                use_pseudo = pseudo_at(iteration)
+                pseudo = {}
+                if use_pseudo:
+                    # reference train.py:801-832: elevation 85 -> 45 across the
+                    # episode, radius 150 -> 75.
+                    if not pseudo_stack:
+                        frac = (end_iter - iteration) / max(o.idu_episode_iterations, 1)
+                        pseudo_stack = t._gen_pseudo_stack_at(frac * (85.0 - 45.0) + 45.0,
+                                                              frac * (150.0 - 75.0) + 75.0)
+                    pcam = pseudo_stack.pop(t.py_rng.randrange(len(pseudo_stack)))
+                    pseudo = t._pseudo_inputs(state, pcam, self.depth_predictor, 1.0)
+                cam, image, mask, depth = g.select(t._own(i))
+                if not t.pipe_cfg.bin_capacity:
+                    t.bin_capacity = max(t.bin_capacity, t._measure(state.model, [cam]))
+                    max_capacity = max(max_capacity, t.bin_capacity)
+                # IDU views: the depth term, and the photometric one with
+                # idu_refine; original views: the photometric term only.
+                if use_idu:
+                    step = t._get_step_fn(o.lambda_depth > 0, use_pseudo,
+                                          photometric=o.idu_refine,
+                                          testing_render=not o.idu_random_ap)
                 else:
-                    cooldown = None
-                    lambda_opacity = o.lambda_opacity
-            use_idu, g, i = draw(iteration)
-            use_pseudo = pseudo_at(iteration)
-            pseudo = {}
-            if use_pseudo:
-                # reference train.py:801-832: elevation 85 -> 45 across the
-                # episode, radius 150 -> 75.
-                if not pseudo_stack:
-                    frac = (end_iter - iteration) / max(o.idu_episode_iterations, 1)
-                    pseudo_stack = t._gen_pseudo_stack_at(frac * (85.0 - 45.0) + 45.0,
-                                                          frac * (150.0 - 75.0) + 75.0)
-                pcam = pseudo_stack.pop(t.py_rng.randrange(len(pseudo_stack)))
-                pseudo = t._pseudo_inputs(state, pcam, self.depth_predictor, 1.0)
-            cam, image, mask, depth = g.select(t._own(i))
-            if not t.pipe_cfg.bin_capacity:
-                t.bin_capacity = max(t.bin_capacity, t._measure(state.model, [cam]))
-                max_capacity = max(max_capacity, t.bin_capacity)
-            # IDU views: the depth term, and the photometric one with
-            # idu_refine; original views: the photometric term only.
-            if use_idu:
-                step = t._get_step_fn(o.lambda_depth > 0, use_pseudo, photometric=o.idu_refine,
-                                      testing_render=not o.idu_random_ap)
-            else:
-                step = t._get_step_fn(False, use_pseudo)
-            state, metrics = step(state, cam, image, mask, depth, t.bg,
-                                  xyz_sched(iteration - first_iter), lambda_opacity,
-                                  generator=t.generator, **pseudo)
-            if metrics.overflow is not None:
-                t.max_overflow = torch.maximum(t.max_overflow, metrics.overflow)
+                    step = t._get_step_fn(False, use_pseudo)
+                state, metrics = step(state, cam, image, mask, depth, t.bg,
+                                      xyz_sched(iteration - first_iter), lambda_opacity,
+                                      generator=t.generator, **pseudo)
+                if metrics.overflow is not None:
+                    t.max_overflow = torch.maximum(t.max_overflow, metrics.overflow)
 
-            if iteration < densify_until:
-                if (iteration > o.densify_from_iter
-                        and iteration % o.densification_interval == 0):
-                    state = t._densify(state)
-                if (iteration % o.idu_opacity_reset_interval == 0
-                        and iteration < end_iter - 100):
-                    params = state.model.params
-                    params.opacity.copy_(reset_opacity(params, state.model.aux.filter_3d))
-                    lambda_opacity = 0.0
-                    cooldown = o.idu_opacity_cooling_iterations
-            elif iteration % 100 == 0 and iteration < end_iter - 100:
-                t._refresh_filter(state)
+                if iteration < densify_until:
+                    if (iteration > o.densify_from_iter
+                            and iteration % o.densification_interval == 0):
+                        state = t._densify(state)
+                    if (iteration % o.idu_opacity_reset_interval == 0
+                            and iteration < end_iter - 100):
+                        params = state.model.params
+                        params.opacity.copy_(reset_opacity(params, state.model.aux.filter_3d))
+                        lambda_opacity = 0.0
+                        cooldown = o.idu_opacity_cooling_iterations
+                elif iteration % 100 == 0 and iteration < end_iter - 100:
+                    t._refresh_filter(state)
 
-            if t.logger:
-                t.logger.log_step(iteration, metrics, 0.0)
-            if iteration % o.idu_testing_interval == 0 or iteration == end_iter:
-                full = t._full(state)
-                if t.rank == 0:
-                    t._report(full, iteration)
+                if t.logger:
+                    t.logger.log_step(iteration, metrics, 0.0)
+                if iteration % o.idu_testing_interval == 0 or iteration == end_iter:
+                    full = t._full(state)
+                    if t.rank == 0:
+                        t._report(full, iteration)
 
         sync()
         self.episodes[-1].update(views_s=t1 - t0, train_s=time.perf_counter() - t1,

@@ -3,9 +3,10 @@ installed).
 
 Port of ``skyfall_gs_tpu/train/logging.py``, writing the same records to
 ``<model_path>/metrics.jsonl``: ``step`` (every ``log_every`` iterations),
-``densify`` and ``eval``.  Step metrics arrive as device tensors and are
-turned into host floats only at flush (every ``flush_every`` iterations),
-so a training step never waits on the device.
+``densify`` and ``eval``; and ``trace``, the port's own: the totals of a
+profiled window's spans and counters.  Step metrics arrive as device
+tensors and are turned into host floats only at flush (every
+``flush_every`` iterations), so a training step never waits on the device.
 """
 
 from __future__ import annotations
@@ -99,6 +100,13 @@ class MetricsLogger:
             self._tb.add_scalar(f"{split}/psnr", psnr, iteration)
         print(f"[eval @{iteration}] {split}: L1 {l1:.4f} PSNR {psnr:.2f}",
               flush=True)
+
+    def log_trace(self, iteration: int, iterations: int, report: dict) -> None:
+        """The spans and counters of a profiled window of ``iterations``
+        iterations ending at ``iteration`` (``utils.trace.report``)."""
+        rec = {"type": "trace", "iter": iteration, "iterations": iterations, **report}
+        self._jsonl.write(json.dumps(rec) + "\n")
+        self._jsonl.flush()
 
     def log_image(self, iteration: int, tag: str, image: np.ndarray) -> None:
         """(H, W, 3) float [0,1] host image to tensorboard (if available)."""

@@ -22,7 +22,9 @@ line for line in its curriculum:
     same ``py_rng`` stream as the JAX Trainer;
   * 3D filter refresh every 100 iterations after densification;
   * step metrics through the MetricsLogger, test renders, PLY snapshots
-    and checkpoints at milestones; an optional torch.profiler trace;
+    and checkpoints at milestones; with ``profile_dir``, a torch.profiler
+    window of ``profile_steps`` iterations: its chrome trace with the
+    program's spans (``utils/trace.py``) and their totals in ``metrics.jsonl``;
   * with a live viewer (``gui``), a poll before every iteration that
     serves its frames and holds training while the viewer pauses it.
 
@@ -125,6 +127,7 @@ from skyfall_gs_tpu_torch.train.step import (
     make_train_step,
 )
 from skyfall_gs_tpu_torch.utils.general import expon_lr_schedule, stream_seed
+from skyfall_gs_tpu_torch.utils.trace import report, span
 from skyfall_gs_tpu_torch.viz.colormap import colorize_depth
 from skyfall_gs_tpu_torch.viz.network_gui import NetworkGUI
 
@@ -450,75 +453,70 @@ class Trainer:
         use_gui = self._has_gui()
 
         for iteration in range(first_iter, iterations + 1):
-            if use_gui:
-                self._on_main(self._poll_gui, self._full(state), iteration < iterations)
-            if cooldown is not None:
-                if cooldown > 0:
-                    cooldown -= 1
-                else:
-                    cooldown = None
-                    lambda_opacity = o.lambda_opacity
-            if iteration % 1000 == 0:
-                state.model.one_up_sh_degree()
-
-            g, i = self._pick_step()
-            use_depth = o.lambda_depth > 0 and g.has_depth
-            use_pseudo = self._pseudo_at(iteration)
-            pseudo = {}
-            if use_pseudo:
-                if not pseudo_stack:
-                    pseudo_stack = self._gen_pseudo_stack(iteration)
-                pcam = pseudo_stack.pop(self.py_rng.randrange(len(pseudo_stack)))
-                pseudo = self._pseudo_inputs(
-                    state, pcam, self.depth_predictor,
-                    min((iteration - o.start_sample_pseudo) / 500.0, 1.0))
-            cam, image, mask, depth = g.select(self._own(i))
-            state, metrics = self._get_step_fn(use_depth, use_pseudo)(
-                state, cam, image, mask, depth, self.bg, xyz_sched(iteration),
-                lambda_opacity, generator=self.generator, **pseudo)
-            if metrics.overflow is not None:
-                self.max_overflow = torch.maximum(self.max_overflow, metrics.overflow)
-
-            # ---- densification ------------------------------------------
-            if iteration < o.densify_until_iter:
-                if (iteration > o.densify_from_iter
-                        and iteration % o.densification_interval == 0):
-                    state = self._densify(state)
-                if iteration % o.opacity_reset_interval == 0 or (
-                        cfg.white_background and iteration == o.densify_from_iter):
-                    params = state.model.params
-                    params.opacity.copy_(reset_opacity(params, state.model.aux.filter_3d))
-                    lambda_opacity = 0.01
-                    cooldown = o.opacity_cooldown_iterations
-            elif iteration % 100 == 0 and iteration < iterations - 100:
-                self._refresh_filter(state)
-
-            # ---- profiling / logging / eval / snapshots -------------------
+            # The profiled window is whole iterations: prof_start .. prof_stop - 1.
             if iteration == prof_start:
                 prof = self._start_profiler()
             elif iteration == prof_stop and prof is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                prof.stop()
-                os.makedirs(self.profile_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(
-                    self.profile_dir,
-                    "trace.json" if self.mesh is None else f"trace_rank{self.rank}.json"))
-                print(f"wrote profiler trace to {self.profile_dir}", flush=True)
+                self._stop_profiler(prof, iteration - 1)
                 prof = None
-            if self.logger:
-                self.logger.log_step(iteration, metrics, time.time() - t_start)
-            if iteration in checkpoint_iterations:
-                self._save_checkpoint(state, iteration)
-            if iteration not in test_iterations and iteration not in save_iterations:
-                continue
-            full = self._full(state)
-            if self.rank != 0:
-                continue
-            if iteration in test_iterations:
-                self._report(full, iteration)
-            if iteration in save_iterations:
-                self.save_ply(full, iteration)
+            with span("train.iteration", iteration):
+                if use_gui:
+                    self._on_main(self._poll_gui, self._full(state), iteration < iterations)
+                if cooldown is not None:
+                    if cooldown > 0:
+                        cooldown -= 1
+                    else:
+                        cooldown = None
+                        lambda_opacity = o.lambda_opacity
+                if iteration % 1000 == 0:
+                    state.model.one_up_sh_degree()
+
+                g, i = self._pick_step()
+                use_depth = o.lambda_depth > 0 and g.has_depth
+                use_pseudo = self._pseudo_at(iteration)
+                pseudo = {}
+                if use_pseudo:
+                    if not pseudo_stack:
+                        pseudo_stack = self._gen_pseudo_stack(iteration)
+                    pcam = pseudo_stack.pop(self.py_rng.randrange(len(pseudo_stack)))
+                    pseudo = self._pseudo_inputs(
+                        state, pcam, self.depth_predictor,
+                        min((iteration - o.start_sample_pseudo) / 500.0, 1.0))
+                cam, image, mask, depth = g.select(self._own(i))
+                state, metrics = self._get_step_fn(use_depth, use_pseudo)(
+                    state, cam, image, mask, depth, self.bg, xyz_sched(iteration),
+                    lambda_opacity, generator=self.generator, **pseudo)
+                if metrics.overflow is not None:
+                    self.max_overflow = torch.maximum(self.max_overflow, metrics.overflow)
+
+                # ---- densification ------------------------------------------
+                if iteration < o.densify_until_iter:
+                    if (iteration > o.densify_from_iter
+                            and iteration % o.densification_interval == 0):
+                        state = self._densify(state)
+                    if iteration % o.opacity_reset_interval == 0 or (
+                            cfg.white_background and iteration == o.densify_from_iter):
+                        params = state.model.params
+                        params.opacity.copy_(reset_opacity(params, state.model.aux.filter_3d))
+                        lambda_opacity = 0.01
+                        cooldown = o.opacity_cooldown_iterations
+                elif iteration % 100 == 0 and iteration < iterations - 100:
+                    self._refresh_filter(state)
+
+                # ---- logging / eval / snapshots -------------------------------
+                if self.logger:
+                    self.logger.log_step(iteration, metrics, time.time() - t_start)
+                if iteration in checkpoint_iterations:
+                    self._save_checkpoint(state, iteration)
+                if iteration not in test_iterations and iteration not in save_iterations:
+                    continue
+                full = self._full(state)
+                if self.rank != 0:
+                    continue
+                if iteration in test_iterations:
+                    self._report(full, iteration)
+                if iteration in save_iterations:
+                    self.save_ply(full, iteration)
 
         if prof is not None:
             prof.stop()
@@ -588,7 +586,24 @@ class Trainer:
         prof.start()
         return prof
 
+    def _stop_profiler(self, prof, last_iteration: int) -> None:
+        """Ends the profiled window: its chrome trace (the kernels and the
+        program's spans) under ``profile_dir`` and, from rank 0, the spans'
+        and counters' totals (``utils.trace.report``) as one ``trace``
+        record of ``metrics.jsonl``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.profile_dir,
+            "trace.json" if self.mesh is None else f"trace_rank{self.rank}.json"))
+        if self.logger:
+            self.logger.log_trace(last_iteration, self.profile_steps, report())
+        print(f"wrote profiler trace to {self.profile_dir}", flush=True)
+
     # ------------------------------------------------------------------
+    @span("train.densify")
     def _densify(self, state: TrainState) -> TrainState:
         o = self.opt_cfg
         # Grow capacity host-side before the pass: a worst-case pass adds up

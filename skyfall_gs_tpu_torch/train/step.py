@@ -48,6 +48,10 @@ from skyfall_gs_tpu_torch.ops.losses import (
     photometric_loss,
     psnr,
 )
+from skyfall_gs_tpu_torch.utils.trace import span
+
+_LOSS = span("train.loss")
+_BACKWARD = span("train.backward")
 
 
 class StepMetrics(NamedTuple):
@@ -166,41 +170,44 @@ def _build_grads_fn(
                    bin_capacity=bin_capacity,
                    # the normal channel is not part of any training loss
                    with_normals=False)
-        image = out.color * gt_mask[..., None]
-        gt = gt_image * gt_mask[..., None]
-        if resample_gt and subpix is not None:
-            gt = resample_with_offset(gt, subpix)
+        with _LOSS:
+            image = out.color * gt_mask[..., None]
+            gt = gt_image * gt_mask[..., None]
+            if resample_gt and subpix is not None:
+                gt = resample_with_offset(gt, subpix)
 
-        if photometric and lpips_fn is not None:
-            ll1 = l1_loss(image, gt)
-            lp = lpips_fn(image[None] * 2.0 - 1.0, gt[None] * 2.0 - 1.0)[0]
-            total = (1.0 - opt_cfg.lambda_dssim) * ll1 + opt_cfg.lambda_dssim * lp
-        elif photometric:
-            total, ll1 = photometric_loss(image.permute(2, 0, 1), gt.permute(2, 0, 1),
-                                          opt_cfg.lambda_dssim)
-        else:
-            total = ll1 = torch.zeros((), device=dev)
-        d_loss = torch.zeros((), device=dev)
-        if use_depth and opt_cfg.lambda_depth > 0:
-            d_loss = depth_pearson_loss(gt_depth * gt_mask, out.depth * gt_mask)
-            total = total + opt_cfg.lambda_depth * d_loss
-        o_loss = entropy(get_opacity(leaves), model.aux.alive)
-        total = total + lambda_opacity * o_loss
+            if photometric and lpips_fn is not None:
+                ll1 = l1_loss(image, gt)
+                lp = lpips_fn(image[None] * 2.0 - 1.0, gt[None] * 2.0 - 1.0)[0]
+                total = (1.0 - opt_cfg.lambda_dssim) * ll1 + opt_cfg.lambda_dssim * lp
+            elif photometric:
+                total, ll1 = photometric_loss(image.permute(2, 0, 1), gt.permute(2, 0, 1),
+                                              opt_cfg.lambda_dssim)
+            else:
+                total = ll1 = torch.zeros((), device=dev)
+            d_loss = torch.zeros((), device=dev)
+            if use_depth and opt_cfg.lambda_depth > 0:
+                d_loss = depth_pearson_loss(gt_depth * gt_mask, out.depth * gt_mask)
+                total = total + opt_cfg.lambda_depth * d_loss
+            o_loss = entropy(get_opacity(leaves), model.aux.alive)
+            total = total + lambda_opacity * o_loss
         overflow = out.overflow
         if use_pseudo:
             pout = draw(m, pseudo_camera, bg, kernel_size=kernel_size, backend=backend,
                         bin_capacity=pseudo_bin_capacity, with_normals=False)
-            pd = depth_pearson_loss(pseudo_gt_depth, pout.depth)
-            pd = torch.where(torch.isnan(pd), torch.zeros_like(pd), pd)
-            total = total + pseudo_scale * opt_cfg.lambda_pseudo_depth * pd
-            d_loss = d_loss + pd
+            with _LOSS:
+                pd = depth_pearson_loss(pseudo_gt_depth, pout.depth)
+                pd = torch.where(torch.isnan(pd), torch.zeros_like(pd), pd)
+                total = total + pseudo_scale * opt_cfg.lambda_pseudo_depth * pd
+                d_loss = d_loss + pd
             if pout.overflow is not None:
                 overflow = overflow + pout.overflow
 
         paths, tensors = zip(*flat_fields(leaves))
         inputs = [*tensors, dummy, abs_dummy]
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
-            inputs, torch.autograd.grad(total, inputs, allow_unused=True))]
+        with _BACKWARD:
+            grads = torch.autograd.grad(total, inputs, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
         aux = {
             "l1": ll1.detach(),
             "depth_loss": d_loss.detach(),
@@ -215,6 +222,7 @@ def _build_grads_fn(
     return grads_fn
 
 
+@span("train.adam")
 def apply_update(state: TrainState, grads: GaussianParams, opt_cfg, xyz_lr: float) -> None:
     """The optimizer half of a step, IN PLACE: Adam with per-field LRs (the
     scheduled ``xyz_lr``) and the appearance embeddings' weight decay, then
