@@ -141,12 +141,24 @@ Phases, one line each:
      (bit-equal across ranks, 3e-2 of 8b's); (13c) 12b's IDU episode with
      ``idu_refine`` on those shards and MoGe on rank 0 (overflow 0, refined
      views bit-equal across ranks); then 13a on NCCL at world size
-     min(device_count, 2).
+     min(device_count, 2);
+ 14. FLUX's fused attention kernel (``csrc/attention.cu`` through
+     ``ops/attention.py`` ``fused_attention``): ptxas's registers and spills,
+     the kernel and the plain version (``ops/attention.py`` ``attention``)
+     against float64 at one FlowEdit evaluation's shape (2 images, 24 heads,
+     4,096 + 512 tokens) and at ragged lengths (1, 300, 4,097; v as the
+     single block's strided view), each error within 1.5 times the plain
+     version's; then the kernel timed by CUDA events over 50 launches at
+     that shape beside its bf16 bound, the plain version and
+     ``scaled_dot_product_attention`` (a yardstick the port never calls),
+     and its launches on the main path (phase 8 and every rank of 13).
 Each measurement line carries the card's name and power limit.  The last
 three lines before the final one are a summary of the kernels at the bench
 shape (time, bound, share of it, plain version, launches, ptxas), their
-JSON record (launches counted over phases 3, 5, 6, 7, 8a, 8d, 9, 10a-10c
-and every rank of 11, 12 and 13c; 10d's jobs run in subprocesses and are not counted) and the
+JSON record (the compositing kernels' launches counted over phases 3, 5,
+6, 7, 8a, 8d, 9, 10a-10c and every rank of 11, 12 and 13c; 10d's jobs run
+in subprocesses and are not counted; the attention kernel's over phase 8,
+where it must launch, and every rank of 13) and the
 card's name and power limit; the final line is the JSON result.  Any failure
 raises, and the script exits non-zero without a result.  There is no CPU path.
 """
@@ -522,6 +534,110 @@ def kernel_bounds(work: dict, n_rows: int, t_total: int) -> dict:
     return res
 
 
+# Phase 14: one FlowEdit evaluation's attention (2 images, 24 heads, 4,096
+# image + 512 text tokens, head width 128), ragged lengths, launches timed.
+ATTN_SHAPE = (2, 24, 4608)
+ATTN_RAGGED = ((2, 3, 1), (2, 3, 300), (1, 4, 4097))
+ATTN_HD = 128
+ATTN_REPS = 50
+ATTN_SMEM_BYTES = 164_992     # csrc/attention.cu kSmemBytes (dynamic)
+
+
+def attention_inputs(torch, b: int, h: int, n: int, seed: int, device="cpu"):
+    """bf16 (b, h, n, 128) q, k, v with FLUX's logits: q and k rows
+    RMS-normalised times a gain of sqrt(20 / sqrt(128)), each q row a random
+    mix of a key row (either sign) and noise, so the scores q.k / sqrt(128)
+    span +-20 at their extremes; v standard normal."""
+    rng = np.random.default_rng(seed)
+
+    def rms_norm(x):
+        return x / np.sqrt((x * x).mean(-1, keepdims=True))
+
+    gain = np.sqrt(20.0 / np.sqrt(ATTN_HD))
+    k = rms_norm(rng.standard_normal((b, h, n, ATTN_HD)))
+    pick = np.take_along_axis(k, rng.integers(0, n, (b, h, n, 1)), 2)
+    mix = rng.uniform(0.0, 1.0, (b, h, n, 1)) * rng.choice([-1.0, 1.0], (b, h, n, 1))
+    q = rms_norm(mix * pick + (1.0 - np.abs(mix)) * rng.standard_normal((b, h, n, ATTN_HD)))
+    v = rng.standard_normal((b, h, n, ATTN_HD))
+    return [torch.from_numpy(x.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+            for x in (gain * q, gain * k, v)]
+
+
+def attention_float64(torch, q, k, v):
+    """softmax(q k^T / sqrt(hd)) v in float64, (B, H, L, hd) -> (B, L, H * hd)."""
+    b, h, n, hd = q.shape
+    out = torch.empty((b, h, n, hd), dtype=torch.float64, device=q.device)
+    for i in range(b):
+        for j in range(h):
+            s = q[i, j].double() @ k[i, j].double().T / float(np.sqrt(hd))
+            out[i, j] = torch.softmax(s, -1) @ v[i, j].double()
+    return out.transpose(1, 2).reshape(b, n, h * hd)
+
+
+def abs_errors(got, want) -> tuple:
+    """(max, mean) absolute error of ``got`` against float64 ``want``."""
+    d = (got.double() - want).abs()
+    return float(d.max()), float(d.mean())
+
+
+def attention_phase(torch, dev, card: str, main_path: int) -> dict:
+    """Phase 14; ``main_path`` is the kernel's launches counted in phases 8
+    and 13.  Returns the kernel's record for the final JSON line."""
+    import torch.nn.functional as F
+
+    from skyfall_gs_tpu_torch.ops import attention as fa
+    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+    from skyfall_gs_tpu_torch.ops.attention import attention
+
+    t0 = time.perf_counter()
+    lib = rt.build_library("attention")
+    fa._library()
+    ptx = ptxas_report(lib.with_suffix(".log").read_text())["attention"]
+    log(14, f"built {lib.name} in {time.perf_counter() - t0:.1f} s; ptxas: "
+            f"flash_attention_kernel {ptx}; {ATTN_SMEM_BYTES} B dynamic smem")
+    worst = 0.0
+    for b, h, n in (ATTN_SHAPE,) + ATTN_RAGGED:
+        q, k, v = attention_inputs(torch, b, h, n, seed=n, device=dev)
+        if (b, h, n) != ATTN_SHAPE:          # the single block's v: a strided view
+            v = v.transpose(1, 2).reshape(b, n, h * ATTN_HD).view(b, n, h, ATTN_HD).transpose(1, 2)
+        want = attention_float64(torch, q, k, v)
+        before = fa.fused_attention.launches
+        got = fa.fused_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert fa.fused_attention.launches == before + 1
+        e_k, e_p = abs_errors(got, want), abs_errors(attention(q, k, v), want)
+        log(14, f"({b}, {h}, {n}, {ATTN_HD}) on [{card}]: against float64, kernel max / mean "
+                f"{e_k[0]:.3e} / {e_k[1]:.3e}, plain {e_p[0]:.3e} / {e_p[1]:.3e} (bound 1.5x "
+                f"the plain version's)")
+        assert e_k[0] <= 1.5 * e_p[0] and e_k[1] <= 1.5 * e_p[1], (e_k, e_p)
+        worst = max(worst, e_k[0])
+        del q, k, v, want, got
+    b, h, n = ATTN_SHAPE
+    q, k, v = attention_inputs(torch, b, h, n, seed=1, device=dev)
+    fns = {"ms": (lambda: fa.fused_attention(q, k, v), ATTN_REPS),
+           "plain_ms": (lambda: attention(q, k, v), 2),
+           "library_ms": (lambda: F.scaled_dot_product_attention(q, k, v), ATTN_REPS)}
+    times = {}
+    for key in ("plain_ms", "ms", "library_ms", "ms", "plain_ms", "library_ms"):
+        fn, reps = fns[key]
+        fn()
+        t = cuda_ms(fn, reps, torch)
+        times[key] = min(times.get(key, t), t)
+    flops = 4 * b * h * n * n * ATTN_HD
+    bound = flops / BF16_PEAK * 1e3
+    log(14, f"({b}, {h}, {n}, {ATTN_HD}) on [{card}], CUDA events over {ATTN_REPS} launches: "
+            f"kernel {times['ms']:.4f} ms, bound {bound:.4f} ms ({flops / 1e9:.1f} GFLOP at "
+            f"989 TFLOP/s bf16; share {bound / times['ms']:.3f}, "
+            f"{flops / times['ms'] / 1e9:.1f} TFLOP/s), plain {times['plain_ms']:.2f} ms, "
+            f"scaled_dot_product_attention {times['library_ms']:.4f} ms (yardstick); launches "
+            f"on the main path (phase 8 and every rank of 13) {main_path}")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "skyfall_gs_tpu_torch/csrc/attention.cu", "replaces": None,
+            "launches": main_path, "max_abs_err": worst, "ms": times["ms"],
+            "plain_ms": times["plain_ms"], "bound_ms": bound, "bound_by": "operations",
+            "library_ms": times["library_ms"], "ptxas": ptx}
+
+
 def work_summary(w: dict) -> str:
     return (f"entries {w['entries']}, walked {w['walked']}, pixel pairs {w['pairs']} "
             f"(in kept strips {w['kept_pairs']}), passing {w['passing']}, warp-slots walked {w['warp_slots']} / culled "
@@ -533,7 +649,8 @@ def ptxas_report(log_text: str) -> dict:
     rep, cur = {}, None
     for ln in log_text.splitlines():
         if "Compiling entry function" in ln:
-            cur = "fwd" if "fwd_kernel" in ln else "bwd" if "bwd_kernel" in ln else None
+            cur = ("fwd" if "fwd_kernel" in ln else "bwd" if "bwd_kernel" in ln
+                   else "attention" if "flash_attention_kernel" in ln else None)
         elif cur and "spill" in ln:
             rep[cur] = ln.strip()
         elif cur and "Used" in ln:
@@ -1500,11 +1617,14 @@ def text_phase(torch, dev, card: str, refiner, frames: list) -> None:
 
 
 def stage2_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
-    """Phase 8; returns the kernels' launch counts of 8a and 8d, and 8b's
-    host copies for phase 13."""
+    """Phase 8; returns the compositing kernels' launch counts of 8a and 8d,
+    the attention kernel's of the whole phase (``attn``), and 8b's host
+    copies for phase 13."""
     from skyfall_gs_tpu_torch.io.png import read_png
+    from skyfall_gs_tpu_torch.ops import attention as fa
 
     t_phase = time.perf_counter()
+    fa.fused_attention.launches = 0
     launches, model = idu_cli_phase(torch, rt, dev, card, tmp)
     render = model / "idu" / "e85.0_r300.0" / "render"
     frames = [read_png(str(render / f"{i:05d}.png")).astype(np.float32) / 255.0 for i in (0, 1)]
@@ -1517,7 +1637,10 @@ def stage2_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
     text_phase(torch, dev, card, refiner, refined)
     del refiner
     torch.cuda.empty_cache()
-    log(8, f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    launches["attn"] = fa.fused_attention.launches
+    log(8, f"attention kernel launches {launches['attn']}; phase 8 took "
+           f"{time.perf_counter() - t_phase:.1f} s")
+    assert launches["attn"] > 0, launches        # bf16 FLUX on the card takes the kernel
     return launches, handoff
 
 
@@ -3051,6 +3174,7 @@ def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -
 
     from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
     from skyfall_gs_tpu_torch.io.scene import load_scene
+    from skyfall_gs_tpu_torch.ops import attention as fa
     from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.priors.flux import FluxConfig, FluxTransformer, build_module
     from skyfall_gs_tpu_torch.priors.flux_refiner import build_flux_refiner
@@ -3069,6 +3193,7 @@ def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -
     tok, ids, tar = _flux_inputs(torch, handoff, dev)
     t = handoff["t"]
     out = {}
+    fa.fused_attention.launches = 0
 
     # 13a: exactness in fp32 at full width, depth cut.
     cut = FluxConfig()._replace(depth_double=TP_CUT[0], depth_single=TP_CUT[1])
@@ -3209,6 +3334,7 @@ def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -
     got = serve_or_run(refiner, single_device_episode, refiner)
     out["single"] = got if mesh.is_main else {"served": got}
     out["peak_gib_13d"] = torch.cuda.max_memory_allocated() / 2**30
+    out["attn_launches"] = fa.fused_attention.launches
     return out
 
 
@@ -3219,12 +3345,14 @@ def flux_nccl_rank(mesh, handoff: dict) -> dict:
 
     import torch
 
+    from skyfall_gs_tpu_torch.ops import attention as fa
     from skyfall_gs_tpu_torch.priors.flux import FluxConfig
     from skyfall_gs_tpu_torch.priors.flux_shard import (
         build_sharded_flux, make_sharded_flux_velocity)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    fa.fused_attention.launches = 0
     tp = dataclasses.replace(mesh, axis="tp")
     tok, ids, tar = _flux_inputs(torch, handoff, mesh.device)
     cfg = FluxConfig()
@@ -3238,12 +3366,13 @@ def flux_nccl_rank(mesh, handoff: dict) -> dict:
            "param_gib": sum(p.numel() * p.element_size() for p in flux.parameters()) / 2**30}
     out["vel_ms"] = cuda_ms(lambda: vel(flux, tok, ids, tar, handoff["t"]), 2, torch)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["attn_launches"] = fa.fused_attention.launches
     return out
 
 
 def flux_tp_phase(torch, card: str, tmp: Path, sat: dict, handoff: dict) -> dict:
-    """Phase 13; returns the kernels' launch counts of every rank (13c and
-    13d)."""
+    """Phase 13; returns the compositing kernels' launch counts of every
+    rank (13c and 13d) and the attention kernel's of every rank (``attn``)."""
     from skyfall_gs_tpu_torch.parallel.mesh import launch
     from skyfall_gs_tpu_torch.priors.flux import FluxConfig
     from skyfall_gs_tpu_torch.priors.flux_shard import count_flux_params
@@ -3315,7 +3444,8 @@ def flux_tp_phase(torch, card: str, tmp: Path, sat: dict, handoff: dict) -> dict
     ep = r0["idu_episode"]
     refined_dir = tmp / "p13" / "idu" / "idu" / ep["tag"] / "render_refine"
     written = sorted(refined_dir.iterdir())
-    launches = {"fwd": 0, "bwd": 0}
+    launches = {"fwd": 0, "bwd": 0, "attn": sum(x["attn_launches"] for x in res)}
+    assert all(x["attn_launches"] > 0 for x in res), [x["attn_launches"] for x in res]
     add_launches(launches, [x["launches"] for x in res])
     log("13c", f"one IDU episode on a 2-rank view mesh (gloo, cuda:0) of [{card}] from "
                f"{Path(ckpt).name}, idu_refine on the sharded FLUX.1-dev of 13b, MoGe on rank 0 "
@@ -3378,8 +3508,11 @@ def flux_tp_phase(torch, card: str, tmp: Path, sat: dict, handoff: dict) -> dict
     assert all(x["finite"] for x in res) and r0["v_rel"] <= FLUX_BF16_REL, r0["v_rel"]
     assert len({x["v_digest"] for x in res}) == 1
     assert r0["traffic"]["collectives"] == n_coll
-    log(13, f"launches fwd {launches['fwd']} bwd {launches['bwd']} (every rank); phase 13 "
-            f"took {time.perf_counter() - t_phase:.1f} s")
+    assert all(x["attn_launches"] > 0 for x in res), [x["attn_launches"] for x in res]
+    launches["attn"] += sum(x["attn_launches"] for x in res)
+    log(13, f"launches fwd {launches['fwd']} bwd {launches['bwd']} attention "
+            f"{launches['attn']} (every rank); phase 13 took "
+            f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3594,6 +3727,7 @@ def main() -> int:
 
         # -- phase 8: Stage 2 on phase 6's scene ----------------------------------
         counts, handoff = stage2_phase(torch, rt, dev, card, Path(tmp))
+        launches["attn"] = 0                 # the attention kernel is counted from phase 8 on
         for k, n in counts.items():
             launches[k] += n
         lap("8")
@@ -3627,24 +3761,30 @@ def main() -> int:
             launches[k] += n
         lap("13")
 
-    # No single PyTorch call composites depth-sorted splats: library_ms null.
+    # -- phase 14: FLUX's fused attention kernel ---------------------------------------
+    attention_kernel = attention_phase(torch, dev, card, launches["attn"])
+    lap("14")
+
+    # No single PyTorch call composites depth-sorted splats: library_ms null
+    # for the compositing kernels.
     kernels = [
         {"name": "composite_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "skyfall_gs_tpu/ops/rasterize_tiled.py:506",
          "launches": launches["fwd"],
          "max_abs_err": max(bench["fwd_max_abs"], fwd_err_1080p),
          "ms": ms["fwd"], "plain_ms": ms["fwd_plain"], "bound_ms": bound["fwd"]["bound_ms"],
-         "bound_by": bound["fwd"]["bound_by"], "library_ms": None},
+         "bound_by": bound["fwd"]["bound_by"], "library_ms": None, "ptxas": ptxas["fwd"]},
         {"name": "composite_bwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "skyfall_gs_tpu/ops/rasterize_tiled.py:544",
          "launches": launches["bwd"], "max_abs_err": bench["grad_max_abs"],
          "ms": ms["bwd"], "plain_ms": ms["bwd_plain"], "bound_ms": bound["bwd"]["bound_ms"],
-         "bound_by": bound["bwd"]["bound_by"], "library_ms": None},
+         "bound_by": bound["bwd"]["bound_by"], "library_ms": None, "ptxas": ptxas["bwd"]},
+        attention_kernel,
     ]
     print("kernels at the bench shape on [" + card + "]: " + "; ".join(
         f"{k['name']} {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "
         f"(share {k['bound_ms'] / k['ms']:.3f}), plain {k['plain_ms']:.1f} ms, launches "
-        f"{k['launches']}, ptxas {ptxas[k['name'][-3:]]}" for k in kernels), flush=True)
+        f"{k['launches']}, ptxas {k['ptxas']}" for k in kernels), flush=True)
     print(f"phase seconds on [{card}]: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; all {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -85,23 +85,21 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def build_library() -> Path:
-    """Compile ``csrc/*.cu`` with nvcc into ``build/`` (once per source
-    hash) and return the shared library's path.  Raises with nvcc's stderr
-    if the build fails.  ptxas's register/shared-memory report is kept
-    beside the library as ``.log``."""
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256()
-    for src in sources:
-        digest.update(src.read_bytes())
+def build_library(name: str = "composite") -> Path:
+    """Compile ``csrc/<name>.cu`` with nvcc into its own library in
+    ``build/`` (once per source hash) and return the library's path.  Raises
+    with nvcc's stderr if the build fails.  ptxas's register/shared-memory
+    report is kept beside the library as ``.log``."""
+    source = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
-    lib = _BUILD_DIR / f"libskyfall_composite_{digest.hexdigest()[:16]}.so"
+    lib = _BUILD_DIR / f"libskyfall_{name}_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc_path(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+        [nvcc_path(), *_NVCC_FLAGS, "-o", str(tmp), str(source)],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")

@@ -19,6 +19,10 @@ in production, fp32 for the parity tests).  LayerNorm and RMSNorm
 statistics, RoPE, the attention scores and their softmax are float32;
 the softmax weights multiply the values in the parameter dtype, as the JAX
 package's ``_attention`` does.  The velocity comes back in float32.
+
+Attention: the blocks call ``ops/attention.py``'s ``block_attention``,
+which takes the fused kernel for bf16 activations on the card and the
+plain ``attention`` otherwise (that module holds both routing rules).
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from skyfall_gs_tpu_torch.ops.attention import block_attention
 
 
 class FluxConfig(NamedTuple):
@@ -123,20 +129,6 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.
 def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     b, n, d = x.shape
     return x.reshape(b, n, heads, d // heads).transpose(1, 2)
-
-
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, H, L, hd) each -> (B, L, H * hd).  Scores and softmax in float32,
-    the weights times the values in ``v``'s dtype; one batch element at a
-    time, so the float32 scores of only one image are live."""
-    b, h, n, hd = q.shape
-    scale = 1.0 / math.sqrt(hd)
-    out = torch.empty_like(v)
-    for i in range(b):
-        s = torch.matmul(q[i].float(), k[i].float().transpose(-1, -2)) * scale
-        out[i] = torch.matmul(torch.softmax(s, -1).to(v.dtype), v[i])
-        del s
-    return out.transpose(1, 2).reshape(b, n, h * hd)
 
 
 def _modulate(x, shift, scale):
@@ -258,7 +250,7 @@ class DoubleBlock(nn.Module):
         k = torch.cat([a.norm_added_k(_heads(a.add_k_proj(txt_n), h)),
                        a.norm_k(_heads(a.to_k(img_n), h))], 2)
         v = torch.cat([_heads(a.add_v_proj(txt_n), h), _heads(a.to_v(img_n), h)], 2)
-        out = attention(_apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v)
+        out = block_attention(_apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v)
         lt = txt.shape[1]
         img = img + i_g1[:, None, :] * _row(mesh, a.to_out[0], out[:, lt:])
         txt = txt + t_g1[:, None, :] * _row(mesh, a.to_add_out, out[:, :lt])
@@ -288,7 +280,7 @@ class SingleBlock(nn.Module):
         xn = _modulate(x, sh, sc)
         q = _apply_rope(a.norm_q(_heads(a.to_q(xn), h)), cos, sin)
         k = _apply_rope(a.norm_k(_heads(a.to_k(xn), h)), cos, sin)
-        att = attention(q, k, _heads(a.to_v(xn), h))
+        att = block_attention(q, k, _heads(a.to_v(xn), h))
         mlp = F.gelu(self.proj_mlp(xn), approximate="tanh")
         return x + g[:, None, :] * _row(mesh, self.proj_out, torch.cat([att, mlp], -1))
 

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from skyfall_gs_tpu_torch.io.scene import _area_weights
-from skyfall_gs_tpu_torch.priors.flux import attention
+from skyfall_gs_tpu_torch.ops.attention import attention
 
 
 class ViTConfig(NamedTuple):
