@@ -13,7 +13,8 @@ Phases, one line each:
      gradient row for every splat wholly past its tiles' termination;
   3. the main path: Stage-1 training steps at the bench workload (512x512,
      100k splats, capacity 125k, SH degree 3, filter_3d 0.3, depth loss on,
-     8 orbit cameras), with both kernels' launch counts, then each kernel
+     8 orbit cameras), with both kernels' launch counts and the projection
+     kernels' (one forward and one backward per step), then each kernel
      timed alone against its plain version at that shape (the backward with
      its accumulation into the gradient table), beside its bound: the work
      ``composite_work`` counts, over the H100's fp32 and HBM peaks;
@@ -151,7 +152,24 @@ Phases, one line each:
      version's; then the kernel timed by CUDA events over 50 launches at
      that shape beside its bf16 bound, the plain version and
      ``scaled_dot_product_attention`` (a yardstick the port never calls),
-     and its launches on the main path (phase 8 and every rank of 13).
+     and its launches on the main path (phase 8 and every rank of 13);
+ 15. the projection kernels (``csrc/projection.cu`` through
+     ``ops/projection.py`` ``project_gaussians``): ptxas's registers and
+     spills, then on 1M splats of a city-like scene from the viewer's 1080p
+     camera and from one of its bands (a camera that fixes its clamp
+     window) the kernels' outputs and the gradients of all four inputs
+     beside the plain float32 version's, each against the plain version in
+     float64 (per field, the mean and the 99th and 99.99th percentiles of
+     the splats' errors at most twice the plain one's plus 1e-6 of the
+     field's largest magnitude, the largest error twice the plain one's
+     plus 0.1 of it; finite wherever the plain one is; no gradient on a
+     culled splat's mean; radius and radius_xy equal except within float32
+     rounding, as the splat's conditioning scales it, of an edge of the
+     float64 values, on at most 2e-4 of the splats), then each kernel's
+     device time over 50 calls queued behind a sleep kernel against its
+     byte bound, a call's time by CUDA events (the host's Python, for the
+     kernel) beside the plain version's, and the kernels' launches on the
+     main path (phases 3 and 8).
 Each measurement line carries the card's name and power limit.  The last
 three lines before the final one are a summary of the kernels at the bench
 shape (time, bound, share of it, plain version, launches, ptxas), their
@@ -638,6 +656,296 @@ def attention_phase(torch, dev, card: str, main_path: int) -> dict:
             "library_ms": times["library_ms"], "ptxas": ptx}
 
 
+PROJ_SPLATS = 1_000_000
+PROJ_REPS = 50
+PROJ_BYTES = {"fwd": 89, "bwd": 121}   # per splat, read and written (csrc/projection.cu)
+PROJ_FIELDS = ("mean2d", "conic", "depth", "opacity", "compensation")
+PROJ_INPUTS = ("means", "scales", "quats", "opacities")
+# Per field, the kernel's error against float64 may reach twice the plain
+# float32 version's plus an atol of the field's largest float64 magnitude:
+# PROJ_ATOL for the mean and the 99th and 99.99th percentiles of the splats'
+# errors (sets of PROJ_BULK splats or more), PROJ_TAIL for the largest,
+# which the worst-conditioned splat of a set sets: a needle-like splat's
+# determinants cancel, both versions keep one or two digits there, and
+# which rounds closer is chance (on an H100 at 1M splats the kernel's
+# largest error read 1e-2 to 6e-2 of the field's magnitude, the plain
+# version's 1e-2 to 2e-2).
+PROJ_ATOL = 1e-6
+PROJ_TAIL = 0.1
+PROJ_BULK = 10_000
+PROJ_STATS = ("mean", "p99", "p99.99", "max")
+PROJ_NEAR = 1e-5          # relative: a float64 value this near a rounding edge may flip
+PROJ_FLIP_SHARE = 2e-4    # the most splats whose radius or radius_xy may differ
+
+
+def projection_splats(torch, n: int, seed: int, device) -> dict:
+    """``n`` splats of a city-like scene drawn from ``seed``: means in a 300 m
+    disk up to 40 m tall (some behind the viewer's camera, some nearer than
+    its near plane), log-normal scales from about 1 cm to 30 m, random
+    quaternions, opacities across (0, 1), a tenth dead."""
+    rng = np.random.default_rng(seed)
+    r = 300.0 * np.sqrt(rng.uniform(0, 1, n))
+    th = rng.uniform(0, 2 * np.pi, n)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    return {"means": f32(np.stack([r * np.cos(th), r * np.sin(th), rng.uniform(0, 40, n)], 1)),
+            "scales": f32(np.exp(rng.normal(np.log(0.5), 1.3, (n, 3)))),
+            "quats": f32(rng.normal(0, 1, (n, 4))),
+            "opacities": f32(1.0 / (1.0 + np.exp(-rng.normal(0, 2, n)))),
+            "alive": torch.from_numpy(rng.uniform(0, 1, n) > 0.1).to(device)}
+
+
+def projection_cameras(device) -> list:
+    """The viewer's 1080p orbit camera (elevation 45, radius 300 m, fov 60)
+    and the second of its four bands, a camera that fixes its clamp window."""
+    from skyfall_gs_tpu_torch.core.camera import band_camera, orbit_cameras
+
+    cam = orbit_cameras([0.0, 0.0, 0.0], 45.0, 300.0, num_cams=1, width=1920, height=1080,
+                        fov_deg=60.0, device=device)[0]
+    return [cam, band_camera(cam, 1, 4)]
+
+
+def camera_float64(torch, cam):
+    import dataclasses
+
+    return dataclasses.replace(cam, **{
+        f.name: getattr(cam, f.name).double() for f in dataclasses.fields(cam)
+        if isinstance(getattr(cam, f.name), torch.Tensor)})
+
+
+def projection_run(torch, fn, camera, s: dict, dtype, weights: dict):
+    """``fn``'s projection of ``s`` in ``dtype``, and the gradient of
+    sum(weights * outputs) over the float outputs into the four inputs."""
+    xs = [s[k].detach().to(dtype).requires_grad_() for k in PROJ_INPUTS]
+    p = fn(*xs, camera, kernel_size=0.1, mask=s["alive"])
+    loss = sum((getattr(p, k).double() * weights[k]).sum() for k in PROJ_FIELDS)
+    return p, torch.autograd.grad(loss, xs)
+
+
+def radius_edges(torch, p64, s: dict, cam64):
+    """Splats whose float64 values lie within float32 rounding of an edge where
+    radius or radius_xy may move: a value rounded up to an integer, or a
+    culling test's threshold (near plane, opacity, screen edges).  Float32
+    rounding is taken as PROJ_NEAR plus 4 float32 epsilons times the larger
+    condition number of the 2D covariance, c00 c11 / det, before and after
+    the dilation (kernel size 0.1), all relative: a needle-like splat's
+    determinants cancel, and the conic, the compensation and the extents
+    derived from them lose that many digits."""
+    a, b, c = p64.conic.detach().unbind(-1)
+    det = a * c - b * b
+    c00, c11, c01 = c / det, a / det, -b / det
+    det1 = c00 * c11 - c01 * c01
+    u00, u11 = c00 - 0.1, c11 - 0.1
+    cond = torch.maximum((c00 * c11 / det1).abs(), (u00 * u11 / (u00 * u11 - c01 * c01)).abs())
+    tol = PROJ_NEAR + 4.0 * 2.0**-23 * cond
+    mid = 0.5 * (c00 + c11)
+    lam1 = mid + torch.sqrt(torch.clamp_min(mid * mid - det1, 0.1))
+    op_eff = torch.clamp(s["opacities"].double() * p64.compensation.detach(), 1e-12, 1.0)
+    sm = torch.sqrt(torch.clamp_min(2.0 * torch.log(255.0 * op_eff), 1e-6))
+    rx = sm * torch.sqrt(torch.clamp_min(c00, 0.0)) + 0.5
+    ry = sm * torch.sqrt(torch.clamp_min(c11, 0.0)) + 0.5
+    wv = cam64.world_view
+    depth_true = s["means"].double() @ wv[2, :3] + wv[2, 3]
+    mx, my = p64.mean2d.detach().unbind(-1)
+    w, h = float(cam64.width), float(cam64.height)
+
+    def near(x, edge, scale):
+        return (x - edge).abs() <= tol * scale
+
+    edge = (depth_true - 0.2).abs() <= PROJ_NEAR
+    edge |= near(op_eff, 1.0 / 255.0, 1.0 / 255.0)
+    for x in (torch.clamp_max(sm, 3.0) * torch.sqrt(lam1), rx, ry):
+        edge |= near(x, x.round(), x.abs().clamp_min(1.0))
+    for m, r, size in ((mx, torch.ceil(rx), w), (my, torch.ceil(ry), h)):
+        scale = m.abs() + size
+        edge |= near(m + r, 0.0, scale) | near(m - r, size, scale)
+    return edge
+
+
+def error_stats(torch, err) -> dict:
+    """PROJ_STATS of per-splat errors (the largest of a splat's components)."""
+    err = err.reshape(err.shape[0], -1).amax(1)
+    q = torch.quantile(err[:2**24], torch.tensor([0.99, 0.9999], dtype=err.dtype,
+                                                 device=err.device)).tolist()
+    return {"mean": float(err.mean()), "p99": q[0], "p99.99": q[1], "max": float(err.max())}
+
+
+def projection_check(torch, camera, s: dict, seed: int) -> dict:
+    """The kernels (``project_gaussians`` on CUDA tensors) and the plain
+    float32 version, each against the plain version in float64, per float
+    output and per input's gradient (of a random readout of every float
+    output): PROJ_STATS of the splats' errors, over the splats whose float64
+    values are finite, the float64 field's largest magnitude, and the count
+    of non-finite kernel values where the plain float32 ones are finite;
+    the culled splats (behind the near plane or dead, by the float64 run)
+    with a non-zero kernel gradient of the mean; and the splats whose radius
+    or radius_xy differ between the kernel and the plain float32 version,
+    and those of them no rounding edge excuses."""
+    from skyfall_gs_tpu_torch.ops import projection as P
+
+    n, dev = s["means"].shape[0], s["means"].device
+    rng = np.random.default_rng(seed)
+    weights = {k: torch.from_numpy(rng.normal(0, 1, (n, 2) if k == "mean2d" else (n, 3)
+                                              if k == "conic" else (n,)).astype(np.float32))
+               .to(dev).double() for k in PROJ_FIELDS}
+    before = (P.project_gaussians.launches, P.project_gaussians.backward_launches)
+    pk, gk = projection_run(torch, P.project_gaussians, camera, s, torch.float32, weights)
+    assert (P.project_gaussians.launches, P.project_gaussians.backward_launches) == (
+        before[0] + 1, before[1] + 1), "the kernels did not launch"
+    pp, gp = projection_run(torch, P.project_gaussians_torch, camera, s, torch.float32, weights)
+    cam64 = camera_float64(torch, camera)
+    pr, gr = projection_run(torch, P.project_gaussians_torch, cam64, s, torch.float64, weights)
+    errors = {}
+    fields = [(f, getattr(pk, f), getattr(pp, f), getattr(pr, f)) for f in PROJ_FIELDS]
+    fields += [(f"grad_{k}", gk[i], gp[i], gr[i]) for i, k in enumerate(PROJ_INPUTS)]
+    for name, k, p, r in fields:
+        k, p, r = k.detach().double(), p.detach().double(), r.detach()
+        fin = torch.isfinite(r).reshape(n, -1).all(1)
+        errors[name] = {
+            "kernel": error_stats(torch, (k - r)[fin].abs()),
+            "plain": error_stats(torch, (p - r)[fin].abs()),
+            "scale": float(r[fin].abs().max()),
+            "nonfinite": int((torch.isfinite(p) & ~torch.isfinite(k)).sum())}
+    wv = cam64.world_view
+    culled = ~s["alive"] | (s["means"].double() @ wv[2, :3] + wv[2, 3] < 0.2 - PROJ_NEAR)
+    differ = (pk.radius != pp.radius) | (pk.radius_xy != pp.radius_xy).any(-1)
+    excused = radius_edges(torch, pr, s, cam64)
+    return {"n": n, "errors": errors,
+            "culled_grad": int((culled & (gk[0] != 0).any(-1)).sum()),
+            "differ": int(differ.sum()), "unexcused": int((differ & ~excused).sum())}
+
+
+def projection_failures(res: dict) -> list:
+    """What of ``projection_check``'s result breaks its bounds."""
+    bad = []
+    stats = PROJ_STATS if res["n"] >= PROJ_BULK else ("max",)
+    for name, e in res["errors"].items():
+        if e["nonfinite"]:
+            bad.append(f"{name}: {e['nonfinite']} non-finite where the plain version is finite")
+        for st in stats:
+            atol = PROJ_TAIL if st == "max" else PROJ_ATOL
+            k, p = e["kernel"][st], e["plain"][st]
+            if not k <= 2.0 * p + atol * e["scale"]:
+                bad.append(f"{name} {st}: error {k:.3e} > 2 x {p:.3e} + {atol:g} x "
+                           f"{e['scale']:.3e}")
+    if res["culled_grad"]:
+        bad.append(f"{res['culled_grad']} culled splats with a gradient of the mean")
+    if res["unexcused"]:
+        bad.append(f"{res['unexcused']} splats' radius differs away from any rounding edge")
+    if res["differ"] > PROJ_FLIP_SHARE * res["n"]:
+        bad.append(f"{res['differ']} of {res['n']} splats' radius differs")
+    return bad
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time per call of ``fn()``: the host queues ``reps`` calls behind
+    a sleep kernel of ~0.5 s, so the CUDA events around them see the calls
+    run back to back on the device, whatever their Python costs the host
+    (asserted: the device has not reached the first event when the host has
+    queued the last call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    assert ahead, "the host did not queue the calls ahead of the device"
+    return start.elapsed_time(end) / reps
+
+
+def projection_phase(torch, dev, card: str, main_path: dict) -> list:
+    """Phase 15; ``main_path`` holds the kernels' launches counted in phases 3
+    and 8 (``proj``, ``proj_bwd``).  Returns both kernels' records for the
+    final JSON line."""
+    from skyfall_gs_tpu_torch.ops import projection as P
+    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+
+    t0 = time.perf_counter()
+    lib = rt.build_library("projection")
+    P._library()
+    ptx = ptxas_report(lib.with_suffix(".log").read_text())
+    log(15, f"built {lib.name} in {time.perf_counter() - t0:.1f} s; ptxas: project_fwd_kernel "
+            f"{ptx['proj_fwd']} | project_bwd_kernel {ptx['proj_bwd']}")
+    s = projection_splats(torch, PROJ_SPLATS, seed=15, device=dev)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for i, (name, cam) in enumerate(zip(("1080p frame", "band 1 of 4"), projection_cameras(dev))):
+        res = projection_check(torch, cam, s, seed=i)
+        log(15, f"{PROJ_SPLATS} splats, {name} on [{card}]: against float64, kernel / plain "
+                "float32 error, mean / p99.99 / max over the field's largest magnitude: " +
+                ", ".join(f"{k} " + " / ".join(
+                    f"{e['kernel'][st] / e['scale']:.1e}:{e['plain'][st] / e['scale']:.1e}"
+                    for st in ("mean", "p99.99", "max")) for k, e in res["errors"].items())
+                + f"; culled splats with a mean gradient {res['culled_grad']}; radius or "
+                  f"radius_xy differ on {res['differ']} splats, {res['unexcused']} of them "
+                  "away from a rounding edge")
+        bad = projection_failures(res)
+        assert not bad, bad
+        for k, e in res["errors"].items():
+            key = "bwd" if k.startswith("grad_") else "fwd"
+            worst[key] = max(worst[key], e["kernel"]["max"])
+
+    cam = projection_cameras(dev)[0]
+    xs = [s[k].detach().requires_grad_() for k in PROJ_INPUTS]
+    graphs = {}
+    for key, fn in (("ms", P.project_gaussians), ("plain_ms", P.project_gaussians_torch)):
+        p = fn(*xs, cam, kernel_size=0.1, mask=s["alive"])
+        outs = [getattr(p, f) for f in PROJ_FIELDS]
+        graphs[key] = (outs, [torch.randn_like(o) for o in outs])
+
+    def forward(fn):
+        def run():
+            with torch.no_grad():
+                fn(*xs, cam, kernel_size=0.1, mask=s["alive"])
+        return run
+
+    def backward(key):
+        outs, cots = graphs[key]
+        return lambda: torch.autograd.grad(outs, xs, cots, retain_graph=True)
+
+    fns = {("fwd", "ms"): forward(P.project_gaussians),
+           ("fwd", "plain_ms"): forward(P.project_gaussians_torch),
+           ("bwd", "ms"): backward("ms"), ("bwd", "plain_ms"): backward("plain_ms")}
+    # A kernel's 1M splats take less time on the card than a call's Python
+    # takes on the host: CUDA events around a run of calls time the host
+    # (reported as a call's time), ``device_ms`` the device.  The plain
+    # versions' ~200 / ~350 eager kernels a call are timed by the calls.
+    times, calls = {}, {}
+    for d in ("fwd", "bwd"):
+        for key in ("plain_ms", "ms", "ms", "plain_ms"):
+            fn = fns[d, key]
+            fn()
+            t = cuda_ms(fn, PROJ_REPS, torch)
+            calls[d, key] = min(calls.get((d, key), t), t)
+            if key == "ms":
+                t = device_ms(torch, fn, PROJ_REPS)
+                times[d] = min(times.get(d, t), t)
+    assert main_path["proj"] > 0 and main_path["proj_bwd"] > 0, main_path
+    records = []
+    for d, name, launches in (("fwd", "project_fwd", main_path["proj"]),
+                              ("bwd", "project_bwd", main_path["proj_bwd"])):
+        nbytes = PROJ_BYTES[d] * PROJ_SPLATS
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = times[d]
+        log(15, f"{d} at {PROJ_SPLATS} splats on [{card}], device time over {PROJ_REPS} calls "
+                f"queued behind a sleep: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+                f"({nbytes / 1e6:.0f} MB at 3.35 TB/s; share {bound / ms:.3f}); a call, CUDA "
+                f"events: kernel {calls[d, 'ms']:.4f} ms, plain {calls[d, 'plain_ms']:.3f} ms; "
+                f"launches on the main path (phases 3 and 8) {launches}")
+        records.append({"name": name, "route": "cuda",
+                        "source": "skyfall_gs_tpu_torch/csrc/projection.cu", "replaces": None,
+                        "launches": launches, "max_abs_err": worst[d], "ms": ms,
+                        "plain_ms": calls[d, "plain_ms"], "bound_ms": bound, "bound_by": "bytes",
+                        "library_ms": None, "ptxas": ptx[f"proj_{d}"]})
+    return records
+
+
 def work_summary(w: dict) -> str:
     return (f"entries {w['entries']}, walked {w['walked']}, pixel pairs {w['pairs']} "
             f"(in kept strips {w['kept_pairs']}), passing {w['passing']}, warp-slots walked {w['warp_slots']} / culled "
@@ -649,7 +957,9 @@ def ptxas_report(log_text: str) -> dict:
     rep, cur = {}, None
     for ln in log_text.splitlines():
         if "Compiling entry function" in ln:
-            cur = ("fwd" if "fwd_kernel" in ln else "bwd" if "bwd_kernel" in ln
+            cur = ("proj_fwd" if "project_fwd_kernel" in ln
+                   else "proj_bwd" if "project_bwd_kernel" in ln
+                   else "fwd" if "fwd_kernel" in ln else "bwd" if "bwd_kernel" in ln
                    else "attention" if "flash_attention_kernel" in ln else None)
         elif cur and "spill" in ln:
             rep[cur] = ln.strip()
@@ -1618,13 +1928,15 @@ def text_phase(torch, dev, card: str, refiner, frames: list) -> None:
 
 def stage2_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
     """Phase 8; returns the compositing kernels' launch counts of 8a and 8d,
-    the attention kernel's of the whole phase (``attn``), and 8b's host
-    copies for phase 13."""
+    the attention kernel's and the projection kernels' of the whole phase
+    (``attn``, ``proj``, ``proj_bwd``), and 8b's host copies for phase 13."""
     from skyfall_gs_tpu_torch.io.png import read_png
     from skyfall_gs_tpu_torch.ops import attention as fa
+    from skyfall_gs_tpu_torch.ops.projection import project_gaussians
 
     t_phase = time.perf_counter()
     fa.fused_attention.launches = 0
+    project_gaussians.launches = project_gaussians.backward_launches = 0
     launches, model = idu_cli_phase(torch, rt, dev, card, tmp)
     render = model / "idu" / "e85.0_r300.0" / "render"
     frames = [read_png(str(render / f"{i:05d}.png")).astype(np.float32) / 255.0 for i in (0, 1)]
@@ -1638,9 +1950,13 @@ def stage2_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
     del refiner
     torch.cuda.empty_cache()
     launches["attn"] = fa.fused_attention.launches
-    log(8, f"attention kernel launches {launches['attn']}; phase 8 took "
+    launches["proj"] = project_gaussians.launches
+    launches["proj_bwd"] = project_gaussians.backward_launches
+    log(8, f"attention kernel launches {launches['attn']}, projection kernels "
+           f"{launches['proj']} / {launches['proj_bwd']}; phase 8 took "
            f"{time.perf_counter() - t_phase:.1f} s")
     assert launches["attn"] > 0, launches        # bf16 FLUX on the card takes the kernel
+    assert launches["proj"] > 0 and launches["proj_bwd"] > 0, launches
     return launches, handoff
 
 
@@ -3546,6 +3862,7 @@ def main() -> int:
     from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
     from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.ops.binning import num_tiles
+    from skyfall_gs_tpu_torch.ops.projection import project_gaussians
     from skyfall_gs_tpu_torch.train.step import init_train_state, make_train_step
 
     # -- phase 0: the card and the toolchain ---------------------------------
@@ -3622,6 +3939,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(rt)
+    project_gaussians.launches = project_gaussians.backward_launches = 0
     t_wall = time.perf_counter()
     for i in range(n_steps):
         if i == WARMUP_STEPS:
@@ -3644,11 +3962,15 @@ def main() -> int:
     assert int(overflow.max()) == 0, f"bin capacity overflow: {overflow.tolist()}"
     assert bool((n_alive == N_GAUSSIANS).all()), n_alive.tolist()
     assert launches == {"fwd": n_steps, "bwd": n_steps}, launches
+    launches["proj"] = project_gaussians.launches
+    launches["proj_bwd"] = project_gaussians.backward_launches
+    assert (launches["proj"], launches["proj_bwd"]) == (n_steps, n_steps), launches
     med = float(np.median(step_ms))
     log(3, f"main path on [{card}]: {n_steps} steps at {IMG}px / {N_GAUSSIANS} splats, "
            f"bin capacity {cap}, loss {float(losses[0]):.5f} -> {float(losses[-1]):.5f}, "
            f"overflow 0, n_alive {N_GAUSSIANS}, launches fwd {launches['fwd']} bwd "
-           f"{launches['bwd']}; median step {med:.3f} ms "
+           f"{launches['bwd']}, projection {launches['proj']} / {launches['proj_bwd']}; "
+           f"median step {med:.3f} ms "
            f"({1000.0 / med:.2f} it/s), host clock {MEASURE_STEPS / wall:.2f} it/s, "
            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -3729,7 +4051,7 @@ def main() -> int:
         counts, handoff = stage2_phase(torch, rt, dev, card, Path(tmp))
         launches["attn"] = 0                 # the attention kernel is counted from phase 8 on
         for k, n in counts.items():
-            launches[k] += n
+            launches[k] += n                 # the projection's: phase 3's and phase 8's
         lap("8")
 
         # -- phase 9: the evaluation suites and the LPIPS loss ----------------------
@@ -3765,6 +4087,10 @@ def main() -> int:
     attention_kernel = attention_phase(torch, dev, card, launches["attn"])
     lap("14")
 
+    # -- phase 15: the projection kernels ------------------------------------------------
+    projection_kernels = projection_phase(torch, dev, card, launches)
+    lap("15")
+
     # No single PyTorch call composites depth-sorted splats: library_ms null
     # for the compositing kernels.
     kernels = [
@@ -3780,6 +4106,7 @@ def main() -> int:
          "ms": ms["bwd"], "plain_ms": ms["bwd_plain"], "bound_ms": bound["bwd"]["bound_ms"],
          "bound_by": bound["bwd"]["bound_by"], "library_ms": None, "ptxas": ptxas["bwd"]},
         attention_kernel,
+        *projection_kernels,
     ]
     print("kernels at the bench shape on [" + card + "]: " + "; ".join(
         f"{k['name']} {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']} "

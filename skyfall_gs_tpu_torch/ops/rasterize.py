@@ -31,7 +31,7 @@ from skyfall_gs_tpu_torch.ops.projection import (
 )
 from skyfall_gs_tpu_torch.ops.rasterize_ref import composite_reference
 from skyfall_gs_tpu_torch.ops.rasterize_tiled import composite_tiled
-from skyfall_gs_tpu_torch.utils.trace import span
+from skyfall_gs_tpu_torch.utils.trace import count, span
 
 _PROJECT = span("render.project")
 _COMPOSITE = span("render.composite")
@@ -132,10 +132,12 @@ def rasterize(
             256, so nothing overflows.
     """
     with _PROJECT:
+        launched = project_gaussians.launches
         proj = project_gaussians(
             means3d, scales, quats, opacities, camera,
             kernel_size=kernel_size, mask=mask, scaling_modifier=scaling_modifier,
         )
+        count("render.project.kernel", project_gaussians.launches - launched)
     if entry_budget is not None:
         if not inference:
             raise ValueError("entry_budget is an inference-only LOD mode; "

@@ -7,6 +7,8 @@ JAX value, with a floor of 1e-6 of the field's largest magnitude for
 entries that cancel to ~0), and finite everywhere.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,10 @@ from skyfall_gs_tpu.core.camera import camera_from_c2w as jcamera_from_c2w
 from skyfall_gs_tpu.core.camera import look_at_c2w
 from skyfall_gs_tpu.ops import projection as jproj
 from skyfall_gs_tpu_torch.core.camera import camera_from_c2w as tcamera_from_c2w
+from skyfall_gs_tpu_torch.core.transforms import covariance_from_scaling_rotation
 from skyfall_gs_tpu_torch.ops import projection as tproj
+from skyfall_gs_tpu_torch.ops.rasterize import rasterize
+from skyfall_gs_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 FIELDS = ("mean2d", "conic", "depth", "opacity", "compensation")
@@ -163,6 +168,45 @@ def test_exact_singular_cov2d_grad_finite():
                             cov3d=c[None]).compensation.sum().backward()
     assert torch.isfinite(c.grad).all()
     np.testing.assert_allclose(c.grad.numpy(), np.asarray(jg), rtol=1e-4, atol=1e-6)
+
+
+def test_cpu_tensors_and_a_given_cov3d_take_the_plain_version(rng, monkeypatch):
+    """The routing of ``project_gaussians``: CPU tensors, and a given
+    ``cov3d`` (which only these tests pass), run ``project_gaussians_torch``,
+    the version the parity tests above hold against JAX; no kernel runs."""
+    def no_kernel(*args):
+        raise AssertionError("the kernels ran")
+
+    monkeypatch.setattr(tproj._Projection, "apply", no_kernel)
+    _, tcam = cameras(48, 32)
+    s = random_splats(rng, 60)
+    xs = [_t(s[k]) for k in ("means", "scales", "quats", "opac")]
+    mask = torch.from_numpy(np.arange(60) % 7 != 3)
+    cov3d = covariance_from_scaling_rotation(xs[1], xs[2])
+    launches = (tproj.project_gaussians.launches, tproj.project_gaussians.backward_launches)
+    for kw in ({}, {"mask": mask}, {"cov3d": cov3d, "mask": mask}):
+        got = tproj.project_gaussians(*xs, tcam, kernel_size=0.1, **kw)
+        want = tproj.project_gaussians_torch(*xs, tcam, kernel_size=0.1, **kw)
+        for f in dataclasses.fields(want):
+            assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+    assert (tproj.project_gaussians.launches,
+            tproj.project_gaussians.backward_launches) == launches
+
+
+def test_profiled_render_counts_the_projection_kernel_inside_its_span(rng):
+    """``rasterize`` records span ``render.project`` and counter
+    ``render.project.kernel`` (0 on CPU tensors) once per call; a projection
+    outside the span (as ``measure_bin_capacity`` makes) adds nothing."""
+    _, tcam = cameras(32, 32)
+    s = random_splats(rng, 40)
+    xs = [_t(s[k]) for k in ("means", "scales", "quats", "opac")]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(3):
+            rasterize(*xs, torch.rand((40, 3)), tcam, torch.zeros(3))
+        tproj.project_gaussians(*xs, tcam)
+    rep = trace.report()
+    assert rep["spans"]["render.project"]["count"] == 3
+    assert rep["counters"]["render.project.kernel"] == 0
 
 
 @pytest.mark.parametrize("seed", [0, 1])
