@@ -414,13 +414,34 @@ def module_version(name: str) -> str:
     return getattr(mod, "__version__", "present")
 
 
-def reset_launches(rt) -> None:
-    rt.composite_fwd.launches = 0
-    rt.composite_bwd.launches = 0
+ATTN, PROJ_FWD, PROJ_BWD = "skyfall_flash_attention", "skyfall_project_fwd", "skyfall_project_bwd"
+COMPOSITE = {"fwd": "skyfall_composite_fwd", "bwd": "skyfall_composite_bwd"}
 
 
-def launches_of(rt) -> dict:
-    return {"fwd": rt.composite_fwd.launches, "bwd": rt.composite_bwd.launches}
+def launch_counts():
+    """The kernels' launch counts (``ops/cuda_lib.py``), keyed by C entry point."""
+    from skyfall_gs_tpu_torch.ops.cuda_lib import launches
+    return launches
+
+
+def load_library(library) -> Path:
+    """Builds and loads a kernel library (an ``ops/cuda_lib.py`` ``Library``)
+    and returns its file."""
+    from skyfall_gs_tpu_torch.ops.cuda_lib import library_path
+    library.load()
+    return library_path(library.source)
+
+
+def reset_launches(*entries: str) -> None:
+    """Zeroes the launch counts of ``entries``, by default the compositing
+    kernels'."""
+    counts = launch_counts()
+    for entry in entries or COMPOSITE.values():
+        counts[entry] = 0
+
+
+def launches_of() -> dict:
+    return {k: launch_counts()[entry] for k, entry in COMPOSITE.items()}
 
 
 def cuda_ms(fn, reps: int, torch) -> float:
@@ -604,12 +625,10 @@ def attention_phase(torch, dev, card: str, main_path: int) -> dict:
     import torch.nn.functional as F
 
     from skyfall_gs_tpu_torch.ops import attention as fa
-    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.ops.attention import attention
 
     t0 = time.perf_counter()
-    lib = rt.build_library("attention")
-    fa._library()
+    lib = load_library(fa.LIBRARY)
     ptx = ptxas_report(lib.with_suffix(".log").read_text())["attention"]
     log(14, f"built {lib.name} in {time.perf_counter() - t0:.1f} s; ptxas: "
             f"flash_attention_kernel {ptx}; {ATTN_SMEM_BYTES} B dynamic smem")
@@ -619,10 +638,10 @@ def attention_phase(torch, dev, card: str, main_path: int) -> dict:
         if (b, h, n) != ATTN_SHAPE:          # the single block's v: a strided view
             v = v.transpose(1, 2).reshape(b, n, h * ATTN_HD).view(b, n, h, ATTN_HD).transpose(1, 2)
         want = attention_float64(torch, q, k, v)
-        before = fa.fused_attention.launches
+        before = launch_counts()[ATTN]
         got = fa.fused_attention(q, k, v)
         torch.cuda.synchronize()
-        assert fa.fused_attention.launches == before + 1
+        assert launch_counts()[ATTN] == before + 1
         e_k, e_p = abs_errors(got, want), abs_errors(attention(q, k, v), want)
         log(14, f"({b}, {h}, {n}, {ATTN_HD}) on [{card}]: against float64, kernel max / mean "
                 f"{e_k[0]:.3e} / {e_k[1]:.3e}, plain {e_p[0]:.3e} / {e_p[1]:.3e} (bound 1.5x "
@@ -790,9 +809,9 @@ def projection_check(torch, camera, s: dict, seed: int) -> dict:
     weights = {k: torch.from_numpy(rng.normal(0, 1, (n, 2) if k == "mean2d" else (n, 3)
                                               if k == "conic" else (n,)).astype(np.float32))
                .to(dev).double() for k in PROJ_FIELDS}
-    before = (P.project_gaussians.launches, P.project_gaussians.backward_launches)
+    before = (launch_counts()[PROJ_FWD], launch_counts()[PROJ_BWD])
     pk, gk = projection_run(torch, P.project_gaussians, camera, s, torch.float32, weights)
-    assert (P.project_gaussians.launches, P.project_gaussians.backward_launches) == (
+    assert (launch_counts()[PROJ_FWD], launch_counts()[PROJ_BWD]) == (
         before[0] + 1, before[1] + 1), "the kernels did not launch"
     pp, gp = projection_run(torch, P.project_gaussians_torch, camera, s, torch.float32, weights)
     cam64 = camera_float64(torch, camera)
@@ -865,11 +884,9 @@ def projection_phase(torch, dev, card: str, main_path: dict) -> list:
     and 8 (``proj``, ``proj_bwd``).  Returns both kernels' records for the
     final JSON line."""
     from skyfall_gs_tpu_torch.ops import projection as P
-    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
 
     t0 = time.perf_counter()
-    lib = rt.build_library("projection")
-    P._library()
+    lib = load_library(P.LIBRARY)
     ptx = ptxas_report(lib.with_suffix(".log").read_text())
     log(15, f"built {lib.name} in {time.perf_counter() - t0:.1f} s; ptxas: project_fwd_kernel "
             f"{ptx['proj_fwd']} | project_bwd_kernel {ptx['proj_bwd']}")
@@ -1051,7 +1068,7 @@ def card_vs_cpu_step(torch, dev, opt_cfg, lpips=None) -> dict:
             "grad_rel": grad_rel, "worst": max(grad_rel, key=grad_rel.get)}
 
 
-def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: bool,
+def train_quality_seed(torch, scene, seed: int, out_dir: str, snapshots: bool,
                        iters: int = Q_ITERS, lpips=None):
     """Train one Trainer seed on ``scene`` for ``iters`` iterations (with
     the LPIPS photometric loss when ``lpips``, an ``LPIPS``, is given) and
@@ -1077,7 +1094,7 @@ def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: boo
     last = (iters,) if snapshots else ()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(rt)
+    reset_launches()
     t0 = time.perf_counter()
     state = trainer.train(state, iterations=iters, test_iterations=last,
                           save_iterations=last, checkpoint_iterations=last)
@@ -1090,7 +1107,7 @@ def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: boo
                             .permute(2, 0, 1),
                             torch.tensor(v.image, device=trainer.device).permute(2, 0, 1)))
                  for v in scene.test_views]
-    launches = launches_of(rt)
+    launches = launches_of()
     peak = torch.cuda.max_memory_allocated() / 2**30
     logger.close()
 
@@ -1122,7 +1139,7 @@ def train_quality_seed(torch, rt, scene, seed: int, out_dir: str, snapshots: boo
             "launches": launches}
 
 
-def quality_phase(torch, rt, dev, card: str) -> dict:
+def quality_phase(torch, dev, card: str) -> dict:
     """Phase 5; returns the kernels' launch counts summed over the seeds."""
     from skyfall_gs_tpu_torch.io.synthetic import make_city_scene
 
@@ -1131,7 +1148,7 @@ def quality_phase(torch, rt, dev, card: str) -> dict:
         scene = make_city_scene(tmp, device=dev, **Q_SCENE)
         runs = []
         for seed in Q_SEEDS:
-            r = train_quality_seed(torch, rt, scene, seed, str(Path(tmp) / f"seed{seed}"),
+            r = train_quality_seed(torch, scene, seed, str(Path(tmp) / f"seed{seed}"),
                                    snapshots=(seed == Q_SEEDS[0]))
             runs.append(r)
             log(5, f"seed {seed} on [{card}]: test PSNR {r['psnr']:.3f} dB, SSIM "
@@ -1221,7 +1238,7 @@ class GateStream(threading.Thread):
         self.seconds = time.perf_counter() - t0
 
 
-def cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
+def cli_phase(torch, dev, card: str, tmp: Path) -> tuple[dict, dict]:
     """Phase 6; returns the kernels' launch counts, and what phase 9 reads:
     the scene directory, the orbit path, the RGB orbit video and the median
     and lowest-PSNR seeds' runs."""
@@ -1234,7 +1251,7 @@ def cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
 
     scene_dir = tmp / "scene"
     t_phase = time.perf_counter()
-    reset_launches(rt)
+    reset_launches()
     n_init = write_satellite_scene(str(scene_dir), device=dev, **SAT_SCENE)
     t_write = time.perf_counter() - t_phase
     t0 = time.perf_counter()
@@ -1291,7 +1308,7 @@ def cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
         for stream in streams:
             stream.stop()
         raise
-    train_launches = launches_of(rt)
+    train_launches = launches_of()
     med = sorted(runs, key=lambda r: r["psnr"])[len(runs) // 2]
     for stream in streams:
         stream.join(SAT_RUN_TIMEOUT_S * len(stream.jobs))
@@ -1314,7 +1331,7 @@ def cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
     _, fps_ply = render_video.main(["--ply", str(tmp / "fused.ply"), "--camera_path", path,
                                     "--out", str(tmp / "ply_depth.mp4"), "--mode", "depth",
                                     "--device", DEVICE])
-    launches = launches_of(rt)
+    launches = launches_of()
     artifacts = {
         "checkpoint": ckpt,
         "ply": model / "point_cloud" / f"iteration_{TRAIN_ITERS}" / "point_cloud.ply",
@@ -1463,10 +1480,10 @@ def stress_phase(torch, rt, dev, card: str) -> tuple[dict, float]:
                              fov_deg=60.0, uid_base=0, device=dev)
         cap = measure_bin_capacity(state, cams, kernel_size=0.1)
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(rt)
+        reset_launches()
         fps_full, full, overflow, mallocs = render_fps(torch, state, cams, bin_capacity=cap)
-        assert launches_of(rt)["fwd"] > 0, launches_of(rt)
-        for k, v in launches_of(rt).items():
+        assert launches_of()["fwd"] > 0, launches_of()
+        for k, v in launches_of().items():
             launches[k] += v
         assert overflow == 0, f"{w}x{h} full render overflow {overflow}"
         log(7, f"stress scene {STRESS_SPLATS} splats {w}x{h} on [{card}]: full render at "
@@ -1489,10 +1506,10 @@ def stress_phase(torch, rt, dev, card: str) -> tuple[dict, float]:
                     kept.append(int(per_splat_entries(proj.mean2d, proj.radius, h, w,
                                                       radius_xy=proj.radius_xy).sum()))
             assert max(kept) <= budget, (budget, kept)
-            reset_launches(rt)
+            reset_launches()
             fps, imgs, overflow, mallocs = render_fps(torch, state, cams, entry_budget=budget)
-            assert launches_of(rt)["fwd"] > 0, launches_of(rt)
-            for k, v in launches_of(rt).items():
+            assert launches_of()["fwd"] > 0, launches_of()
+            for k, v in launches_of().items():
                 launches[k] += v
             assert overflow == 0, f"budget {budget}: overflow {overflow}"
             prof = profile_frames(torch, state, cams, entry_budget=budget)
@@ -1574,7 +1591,7 @@ def cuda_wall_ms(fn, torch, reps: int = 1):
     return (time.perf_counter() - t0) * 1e3 / reps, out
 
 
-def idu_cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, Path]:
+def idu_cli_phase(torch, dev, card: str, tmp: Path) -> tuple[dict, Path]:
     """Phase 8a: Stage 1 with pseudo views, then the IDU curriculum, both
     through ``cli.train`` on phase 6's scene; returns the launches and the
     model directory."""
@@ -1599,7 +1616,7 @@ def idu_cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, Path]:
               f"idu_num_cams {o.idu_num_cams}, idu_num_samples_per_view "
               f"{o.idu_num_samples_per_view} and idu_grid_size {o.idu_grid_size} ({n_views} "
               "orbit views per episode)")
-    reset_launches(rt)
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer, state = train_cli.main(common + flag_list(S1_FLAGS) + [
@@ -1608,7 +1625,7 @@ def idu_cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, Path]:
     torch.cuda.synchronize()
     t_s1, peak_s1 = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
     assert int(trainer.max_overflow) == 0, f"Stage 1 overflow {int(trainer.max_overflow)}"
-    s1_launches = launches_of(rt)
+    s1_launches = launches_of()
     assert s1_launches["fwd"] > S1_ITERS and s1_launches["bwd"] >= S1_ITERS, s1_launches
     finite_steps(model, 0)
     del trainer, state
@@ -1621,7 +1638,7 @@ def idu_cli_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, Path]:
         "--refiner", "identity", "--idu_episodes", str(IDU_EPISODES)] + flag_list(IDU_FLAGS))
     torch.cuda.synchronize()
     t_s2, peak_s2 = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
-    launches = launches_of(rt)
+    launches = launches_of()
     n_steps = finite_steps(model, S1_ITERS)
     for k, v in flat_fields(state.model.params):
         assert bool(torch.isfinite(v).all()), f"non-finite parameter {k}"
@@ -1784,7 +1801,7 @@ def moge_phase(torch, dev, card: str, frames: list):
     return pred
 
 
-def chain_phase(torch, rt, dev, card: str, tmp: Path, model: Path, refiner, pred) -> dict:
+def chain_phase(torch, dev, card: str, tmp: Path, model: Path, refiner, pred) -> dict:
     """Phase 8d: one IDU episode with the full-width FLUX refiner and MoGe;
     returns the launches."""
     from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
@@ -1797,7 +1814,7 @@ def chain_phase(torch, rt, dev, card: str, tmp: Path, model: Path, refiner, pred
     scene = load_scene(str(tmp / "scene"), eval_split=True, device=dev)
     trainer = Trainer(ModelConfig(model_path=str(out)), OptimizationConfig(**CHAIN),
                       PipelineConfig(), scene, rng_seed=0)
-    reset_launches(rt)
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = trainer.init_state(str(start))
@@ -1805,7 +1822,7 @@ def chain_phase(torch, rt, dev, card: str, tmp: Path, model: Path, refiner, pred
     state = orch.run(state, trainer.start_iteration, episodes=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launches_of(rt)
+    launches = launches_of()
     end = trainer.start_iteration + CHAIN["idu_episode_iterations"]
     ep = orch.episodes[0]
     refined = sorted((out / "idu" / ep["tag"] / "render_refine").iterdir())
@@ -1926,32 +1943,29 @@ def text_phase(torch, dev, card: str, refiner, frames: list) -> None:
     torch.cuda.empty_cache()
 
 
-def stage2_phase(torch, rt, dev, card: str, tmp: Path) -> tuple[dict, dict]:
+def stage2_phase(torch, dev, card: str, tmp: Path) -> tuple[dict, dict]:
     """Phase 8; returns the compositing kernels' launch counts of 8a and 8d,
     the attention kernel's and the projection kernels' of the whole phase
     (``attn``, ``proj``, ``proj_bwd``), and 8b's host copies for phase 13."""
     from skyfall_gs_tpu_torch.io.png import read_png
-    from skyfall_gs_tpu_torch.ops import attention as fa
-    from skyfall_gs_tpu_torch.ops.projection import project_gaussians
 
     t_phase = time.perf_counter()
-    fa.fused_attention.launches = 0
-    project_gaussians.launches = project_gaussians.backward_launches = 0
-    launches, model = idu_cli_phase(torch, rt, dev, card, tmp)
+    reset_launches(ATTN, PROJ_FWD, PROJ_BWD)
+    launches, model = idu_cli_phase(torch, dev, card, tmp)
     render = model / "idu" / "e85.0_r300.0" / "render"
     frames = [read_png(str(render / f"{i:05d}.png")).astype(np.float32) / 255.0 for i in (0, 1)]
     refiner, refined, handoff = flux_phase(torch, dev, card, frames)
     pred = moge_phase(torch, dev, card, refined)
-    for k, n in chain_phase(torch, rt, dev, card, tmp, model, refiner, pred).items():
+    for k, n in chain_phase(torch, dev, card, tmp, model, refiner, pred).items():
         launches[k] += n
     del pred
     torch.cuda.empty_cache()
     text_phase(torch, dev, card, refiner, refined)
     del refiner
     torch.cuda.empty_cache()
-    launches["attn"] = fa.fused_attention.launches
-    launches["proj"] = project_gaussians.launches
-    launches["proj_bwd"] = project_gaussians.backward_launches
+    launches["attn"] = launch_counts()[ATTN]
+    launches["proj"] = launch_counts()[PROJ_FWD]
+    launches["proj_bwd"] = launch_counts()[PROJ_BWD]
     log(8, f"attention kernel launches {launches['attn']}, projection kernels "
            f"{launches['proj']} / {launches['proj_bwd']}; phase 8 took "
            f"{time.perf_counter() - t_phase:.1f} s")
@@ -1993,7 +2007,7 @@ def lpips_flops(net: str, size: int) -> int:
     return 2 * flops
 
 
-def lpips_phase(torch, rt, dev, card: str, q_seed0: dict) -> dict:
+def lpips_phase(torch, dev, card: str, q_seed0: dict) -> dict:
     """Phase 9a: LPIPS alex / vgg at full width on the card against the CPU,
     ms per 1024^2 pair, one LPIPS-loss step against the CPU, and the
     Trainer with use_lpips_loss on phase 5's scene; returns the launches."""
@@ -2038,7 +2052,7 @@ def lpips_phase(torch, rt, dev, card: str, q_seed0: dict) -> dict:
 
     with tempfile.TemporaryDirectory(prefix="skyfall_lpips_") as tmp:
         scene = make_city_scene(tmp, device=dev, **Q_SCENE)
-        t = train_quality_seed(torch, rt, scene, 0, str(Path(tmp) / "lpips"), snapshots=False,
+        t = train_quality_seed(torch, scene, 0, str(Path(tmp) / "lpips"), snapshots=False,
                                iters=LPIPS_ITERS,
                                lpips=LPIPS("alex", *states["alex"], device=dev))
     log("9a", f"Trainer with use_lpips_loss (alex) on phase 5's scene, seed 0, {LPIPS_ITERS} "
@@ -2051,7 +2065,7 @@ def lpips_phase(torch, rt, dev, card: str, q_seed0: dict) -> dict:
     return t["launches"]
 
 
-def geometry_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
+def geometry_phase(torch, dev, card: str, tmp: Path, sat: dict) -> dict:
     """Phase 9b: cli.eval_geometry on phase 6's median-seed checkpoint and
     scene against the DSM of the city's ground-truth splat centres;
     returns the launches."""
@@ -2081,7 +2095,7 @@ def geometry_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
         return out
 
     render_mod.render = timed_render
-    reset_launches(rt)
+    reset_launches()
     t0 = time.perf_counter()
     try:
         m = eval_geometry.main(["--checkpoint", str(ckpt), "-s", str(sat["scene"]), "--gt_dir",
@@ -2090,7 +2104,7 @@ def geometry_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
     finally:
         render_mod.render = plain_render
     wall = time.perf_counter() - t0
-    launches = launches_of(rt)
+    launches = launches_of()
     log("9b", f"cli.eval_geometry on [{card}]: seed {sat['median']['seed']}'s chkpnt"
               f"{TRAIN_ITERS}.npz over the scene's 16 views at {SAT_SCENE['size']} px against "
               f"the DSM of its {SAT_SCENE['n_points']} ground-truth splat centres "
@@ -2107,7 +2121,7 @@ def geometry_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
     return launches
 
 
-def photometric_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
+def photometric_phase(torch, dev, card: str, tmp: Path, sat: dict) -> dict:
     """Phase 9c: cli.eval_photometric of the lowest-PSNR seed's orbit video
     against phase 6's, then paired_metrics with the VGG LPIPS and
     distribution_metrics through a random CLIP ViT-L/14-336; returns the
@@ -2129,11 +2143,11 @@ def photometric_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
     assert sat["rgb"].suffix == ".mp4", sat["rgb"]
     shutil.copy(sat["rgb"], root / "gt" / "city.mp4")
     low = sat["lowest"]
-    reset_launches(rt)
+    reset_launches()
     render_video.main(["--checkpoint", str(low["model"] / f"chkpnt{TRAIN_ITERS}.npz"),
                        "--camera_path", sat["path"], "--out", str(root / "lowest" / "city.mp4"),
                        "--device", DEVICE])
-    launches = launches_of(rt)
+    launches = launches_of()
     t0 = time.perf_counter()
     rows = eval_photometric.main(["--root", str(root), "--methods", "lowest", "--scenes",
                                   "city", "--num_frames", str(PHOTO_FRAMES), "--resize",
@@ -2179,13 +2193,13 @@ def photometric_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
     return launches
 
 
-def eval_phase(torch, rt, dev, card: str, tmp: Path, sat: dict, q_seed0: dict) -> dict:
+def eval_phase(torch, dev, card: str, tmp: Path, sat: dict, q_seed0: dict) -> dict:
     """Phase 9; returns the kernels' launch counts of 9a, 9b and 9c."""
     t_phase = time.perf_counter()
-    launches = lpips_phase(torch, rt, dev, card, q_seed0)
+    launches = lpips_phase(torch, dev, card, q_seed0)
     torch.cuda.empty_cache()
     for fn in (geometry_phase, photometric_phase):
-        for k, n in fn(torch, rt, dev, card, tmp, sat).items():
+        for k, n in fn(torch, dev, card, tmp, sat).items():
             launches[k] += n
         torch.cuda.empty_cache()
     log(9, f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
@@ -2292,7 +2306,7 @@ class ViewerClient:
             raise RuntimeError(f"viewer client failed: {self.error!r}")
 
 
-def viewer_parity_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
+def viewer_parity_phase(torch, dev, card: str, tmp: Path, sat: dict) -> None:
     """10a: one 1080p SIBR request for test camera 0, served by the Trainer's
     _poll_gui, against the direct render of the same camera."""
     from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
@@ -2346,7 +2360,7 @@ def viewer_parity_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None
     assert client.verify == [str(sat["scene"])], client.verify
 
 
-def viewer_live_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
+def viewer_live_phase(torch, dev, card: str, tmp: Path, sat: dict) -> None:
     """10b: cli.train --gui_port with a viewer taking one 1080p frame per
     iteration, pausing training for VIEWER_PAUSED_FRAMES frames."""
     from skyfall_gs_tpu_torch.cli import train as train_cli
@@ -2420,7 +2434,7 @@ def viewer_live_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
     assert client.verify == [str(sat["scene"])] * len(frames)
 
 
-def align_ges_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
+def align_ges_phase(torch, dev, card: str, tmp: Path, sat: dict) -> None:
     """10c: cli.align_ges on GES_FRAMES frames rendered from the median
     checkpoint at the target altitude GES_Z_STAR."""
     import argparse
@@ -2476,7 +2490,7 @@ def align_ges_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
     assert len(path["camera_path"]) == 240 and path["_target"][2] == best
 
 
-def launcher_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
+def launcher_phase(torch, dev, card: str, tmp: Path, sat: dict) -> None:
     """10d: launcher jobs train two copies of phase 6's scene (and fail on a
     missing one), then render_videos renders two orbits from each."""
     import shutil
@@ -2533,17 +2547,17 @@ def launcher_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> None:
                                and any(p.iterdir())) for p in written), written
 
 
-def tools_phase(torch, rt, dev, card: str, tmp: Path, sat: dict) -> dict:
+def tools_phase(torch, dev, card: str, tmp: Path, sat: dict) -> dict:
     """Phase 10; returns the kernels' launch counts of 10a-10c (10d's run in
     subprocesses)."""
     t_phase = time.perf_counter()
-    reset_launches(rt)
+    reset_launches()
     for fn in (viewer_parity_phase, viewer_live_phase, align_ges_phase):
-        fn(torch, rt, dev, card, tmp, sat)
+        fn(torch, dev, card, tmp, sat)
         torch.cuda.empty_cache()
-    launches = launches_of(rt)
+    launches = launches_of()
     assert launches["fwd"] > 0 and launches["bwd"] > 0, launches
-    launcher_phase(torch, rt, dev, card, tmp, sat)
+    launcher_phase(torch, dev, card, tmp, sat)
     log(10, f"launches in 10a-10c fwd {launches['fwd']} bwd {launches['bwd']}; phase 10 took "
             f"{time.perf_counter() - t_phase:.1f} s")
     return launches
@@ -2565,7 +2579,6 @@ def parallel_step_rank(mesh, n_steps: int) -> dict:
     from skyfall_gs_tpu_torch.model.densify import densification_terms
     from skyfall_gs_tpu_torch.model.gaussians import flat_fields
     from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
-    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.parallel.sharding import (
         assert_replicated, broadcast_state_, make_parallel_train_step)
     from skyfall_gs_tpu_torch.train.step import _build_grads_fn, init_train_state
@@ -2600,7 +2613,7 @@ def parallel_step_rank(mesh, n_steps: int) -> dict:
         del views
     step = make_parallel_train_step(mesh, opt_cfg, **kw)
     mesh.barrier()
-    reset_launches(rt)
+    reset_launches()
     mesh.traffic.update(collectives=0, bytes=0)
     ts, m = step(ts, cams[r], gt, mask, gt_depth, bg, 1e-4, 0.1)
     out["bytes_per_step"] = mesh.traffic["bytes"]
@@ -2631,7 +2644,7 @@ def parallel_step_rank(mesh, n_steps: int) -> dict:
     out["max_overflow"] = int(torch.stack(overflow).max())
     out["finite"] = all(bool(torch.isfinite(v).all()) for _, v in flat_fields(ts.model.params))
     out["digest"] = assert_replicated(ts, mesh)
-    out["launches"] = launches_of(rt)
+    out["launches"] = launches_of()
     # The step's two collectives alone: one SUM of the gradients, the stat
     # terms and the metrics, one MAX of the AbsGS norms and the radii.
     c = ts.model.params.capacity
@@ -2685,7 +2698,6 @@ def parallel_trainer_rank(mesh, scene_dir: str, ckpt: str, out_dir: str) -> dict
     from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
     from skyfall_gs_tpu_torch.io.scene import load_scene
     from skyfall_gs_tpu_torch.model.gaussians import flat_fields
-    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.parallel.sharding import assert_replicated
     from skyfall_gs_tpu_torch.priors import IdentityRefiner, RenderDepthPredictor
     from skyfall_gs_tpu_torch.train.idu import IDUOrchestrator
@@ -2694,7 +2706,7 @@ def parallel_trainer_rank(mesh, scene_dir: str, ckpt: str, out_dir: str) -> dict
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     scene = load_scene(scene_dir, eval_split=True, device=mesh.device)
-    reset_launches(rt)
+    reset_launches()
     out = {}
     t = Trainer(ModelConfig(model_path=str(Path(out_dir) / "stage1")),
                 OptimizationConfig(iterations=P_S1_ITERS, **P_S1_OPT), PipelineConfig(), scene,
@@ -2741,7 +2753,7 @@ def parallel_trainer_rank(mesh, scene_dir: str, ckpt: str, out_dir: str) -> dict
     out["idu_finite"] = all(bool(torch.isfinite(v).all())
                             for _, v in flat_fields(state.model.params))
     out["idu_digest"] = assert_replicated(state, mesh)
-    out["launches"] = launches_of(rt)
+    out["launches"] = launches_of()
     return out
 
 
@@ -2754,7 +2766,6 @@ def parallel_render_rank(mesh, ckpt: str) -> dict:
     from skyfall_gs_tpu_torch.cli.render_video import load_state_from_checkpoint
     from skyfall_gs_tpu_torch.core.camera import band_camera, orbit_cameras
     from skyfall_gs_tpu_torch.model.render import measure_bin_capacity, render
-    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.parallel.sharding import (
         make_parallel_render, make_tile_parallel_render)
 
@@ -2764,7 +2775,7 @@ def parallel_render_rank(mesh, ckpt: str) -> dict:
     cams = orbit_cameras([0, 0, 0], v["elevation"], v["radius"], num_cams=b, width=v["width"],
                          height=v["height"], fov_deg=v["fov_deg"], device=dev)
     bg = torch.zeros(3, device=dev)
-    reset_launches(rt)
+    reset_launches()
     band = band_camera(cams[0], r, b)
     tile_fn = make_tile_parallel_render(mesh, bin_capacity=mesh.max_int(
         measure_bin_capacity(model, [band], kernel_size=0.1)))
@@ -2790,7 +2801,7 @@ def parallel_render_rank(mesh, ckpt: str) -> dict:
             float((colors - torch.stack([a.color for a in alone])).abs().max()),
             float((depths - torch.stack([a.depth for a in alone])).abs().max()))
         out["parallel_overflow"] = max(int(a.overflow) for a in alone)
-    out["launches"] = launches_of(rt)
+    out["launches"] = launches_of()
     return out
 
 
@@ -2807,7 +2818,7 @@ def add_launches(total: dict, results) -> None:
             total[k] += n
 
 
-def parallel_phase(torch, rt, dev, card: str, tmp: Path, sat: dict, phase3_ms: float) -> dict:
+def parallel_phase(torch, dev, card: str, tmp: Path, sat: dict, phase3_ms: float) -> dict:
     """Phase 11; returns the kernels' launch counts of every rank."""
     from skyfall_gs_tpu_torch.cli import train as train_cli
     from skyfall_gs_tpu_torch.parallel.mesh import launch
@@ -3088,7 +3099,6 @@ def gauss_step_rank(mesh, n_steps: int) -> dict:
     from skyfall_gs_tpu_torch.config import OptimizationConfig
     from skyfall_gs_tpu_torch.model.gaussians import flat_fields
     from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
-    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.parallel import gauss_shard as gs
     from skyfall_gs_tpu_torch.parallel.sharding import state_digest
     from skyfall_gs_tpu_torch.train.step import init_train_state
@@ -3112,7 +3122,7 @@ def gauss_step_rank(mesh, n_steps: int) -> dict:
     torch.cuda.empty_cache()
     step = gs.make_gauss_sharded_train_step(mesh, opt_cfg, **kw)
     mesh.barrier()
-    reset_launches(rt)
+    reset_launches()
     mesh.traffic.update(collectives=0, bytes=0)
     ts, m = step(ts, cams[0], gt, mask, gt_depth, bg, 1e-4, 0.1)
     out["bytes_per_step"] = mesh.traffic["bytes"]
@@ -3137,7 +3147,7 @@ def gauss_step_rank(mesh, n_steps: int) -> dict:
     out["max_overflow"] = int(torch.stack(overflow).max())
     out["finite"] = all(bool(torch.isfinite(v).all()) for _, v in flat_fields(ts.model.params))
     out["digest"] = state_digest(gs.gather_train_state(ts, mesh))
-    out["launches"] = launches_of(rt)
+    out["launches"] = launches_of()
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     out["collectives"] = _gauss_collectives(torch, mesh, ts.model.params.capacity)
     return out
@@ -3156,7 +3166,6 @@ def gauss_trainer_rank(mesh, scene_dir: str, ckpt: str, out_dir: str) -> dict:
     from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
     from skyfall_gs_tpu_torch.io.scene import load_scene
     from skyfall_gs_tpu_torch.model.gaussians import flat_fields
-    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.parallel.gauss_shard import gather_train_state
     from skyfall_gs_tpu_torch.parallel.sharding import state_digest
     from skyfall_gs_tpu_torch.priors import IdentityRefiner, RenderDepthPredictor
@@ -3169,7 +3178,7 @@ def gauss_trainer_rank(mesh, scene_dir: str, ckpt: str, out_dir: str) -> dict:
     mesh = dataclasses.replace(mesh, axis="gauss")
     out_dir = Path(out_dir)
     scene = load_scene(scene_dir, eval_split=True, device=mesh.device)
-    reset_launches(rt)
+    reset_launches()
 
     def trainer(name, opt, m=mesh, pred=None):
         return Trainer(ModelConfig(model_path=str(out_dir / name)), opt, PipelineConfig(), scene,
@@ -3234,7 +3243,7 @@ def gauss_trainer_rank(mesh, scene_dir: str, ckpt: str, out_dir: str) -> dict:
     out["idu_finite"] = all(bool(torch.isfinite(v).all())
                             for _, v in flat_fields(state.model.params))
     out["idu_digest"] = digest(state)
-    out["launches"] = launches_of(rt)
+    out["launches"] = launches_of()
     return out
 
 
@@ -3254,7 +3263,6 @@ def grid_rank(mesh, n_steps: int) -> dict:
 
     from skyfall_gs_tpu_torch.config import OptimizationConfig
     from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
-    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.parallel import gauss_shard as gs
     from skyfall_gs_tpu_torch.parallel.mesh import grid_meshes
     from skyfall_gs_tpu_torch.parallel.sharding import state_digest
@@ -3277,7 +3285,7 @@ def grid_rank(mesh, n_steps: int) -> dict:
     torch.cuda.empty_cache()
     step = gs.make_grid_train_step(data, gauss, opt_cfg, **kw)
     mesh.barrier()
-    reset_launches(rt)
+    reset_launches()
     d = data.rank
     ts, m = step(ts, cams[d], gt, mask, gt_depth, bg, 1e-4, 0.1)
     gathered = gs.gather_train_state(ts, gauss)
@@ -3294,11 +3302,11 @@ def grid_rank(mesh, n_steps: int) -> dict:
     events[n_steps].record()
     torch.cuda.synchronize()
     out["step_ms"] = [events[i].elapsed_time(events[i + 1]) for i in range(n_steps)]
-    out["launches"] = launches_of(rt)
+    out["launches"] = launches_of()
     return out
 
 
-def gauss_phase(torch, rt, dev, card: str, tmp: Path, sat: dict, phase3_ms: float) -> dict:
+def gauss_phase(torch, dev, card: str, tmp: Path, sat: dict, phase3_ms: float) -> dict:
     """Phase 12; returns the kernels' launch counts of every rank."""
     from skyfall_gs_tpu_torch.cli import train as train_cli
     from skyfall_gs_tpu_torch.parallel.mesh import launch
@@ -3490,8 +3498,6 @@ def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -
 
     from skyfall_gs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
     from skyfall_gs_tpu_torch.io.scene import load_scene
-    from skyfall_gs_tpu_torch.ops import attention as fa
-    from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.priors.flux import FluxConfig, FluxTransformer, build_module
     from skyfall_gs_tpu_torch.priors.flux_refiner import build_flux_refiner
     from skyfall_gs_tpu_torch.priors.flux_serve import frames_digest, serve_or_run
@@ -3509,7 +3515,7 @@ def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -
     tok, ids, tar = _flux_inputs(torch, handoff, dev)
     t = handoff["t"]
     out = {}
-    fa.fused_attention.launches = 0
+    reset_launches(ATTN)
 
     # 13a: exactness in fp32 at full width, depth cut.
     cut = FluxConfig()._replace(depth_double=TP_CUT[0], depth_single=TP_CUT[1])
@@ -3592,7 +3598,7 @@ def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -
         return got
 
     orch.generate_idu_views = recorded
-    reset_launches(rt)
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = orch.run(state, trainer.start_iteration, episodes=1)
@@ -3602,7 +3608,7 @@ def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -
     out["idu_overflow"] = max(orch.max_overflow, int(trainer.max_overflow))
     out["idu_views_digest"] = digest(np.stack([v.image for v in views]))
     out["idu_end"] = trainer.start_iteration + TP_IDU_OPT["idu_episode_iterations"]
-    out["launches"] = launches_of(rt)
+    out["launches"] = launches_of()
     out["peak_gib_13c"] = torch.cuda.max_memory_allocated() / 2**30
     views_13c = np.stack([v.image for v in views]) if mesh.is_main else None
     del orch, state, trainer, views
@@ -3629,14 +3635,14 @@ def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -
             return got
 
         orch._render, orch.generate_idu_views = rendered, generated
-        reset_launches(rt)
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         orch.run(state, trainer.start_iteration, episodes=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         refined = np.stack([v.image for v in views])
-        return {"wall": wall, "episode": orch.episodes[0], "launches": launches_of(rt),
+        return {"wall": wall, "episode": orch.episodes[0], "launches": launches_of(),
                 "overflow": max(orch.max_overflow, int(trainer.max_overflow)),
                 "client": dict(orch.client.record),
                 "views_digest": frames_digest([v.image for v in views]),
@@ -3650,7 +3656,7 @@ def flux_tp_rank(mesh, handoff: dict, scene_dir: str, ckpt: str, out_dir: str) -
     got = serve_or_run(refiner, single_device_episode, refiner)
     out["single"] = got if mesh.is_main else {"served": got}
     out["peak_gib_13d"] = torch.cuda.max_memory_allocated() / 2**30
-    out["attn_launches"] = fa.fused_attention.launches
+    out["attn_launches"] = launch_counts()[ATTN]
     return out
 
 
@@ -3661,14 +3667,13 @@ def flux_nccl_rank(mesh, handoff: dict) -> dict:
 
     import torch
 
-    from skyfall_gs_tpu_torch.ops import attention as fa
     from skyfall_gs_tpu_torch.priors.flux import FluxConfig
     from skyfall_gs_tpu_torch.priors.flux_shard import (
         build_sharded_flux, make_sharded_flux_velocity)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    fa.fused_attention.launches = 0
+    reset_launches(ATTN)
     tp = dataclasses.replace(mesh, axis="tp")
     tok, ids, tar = _flux_inputs(torch, handoff, mesh.device)
     cfg = FluxConfig()
@@ -3682,7 +3687,7 @@ def flux_nccl_rank(mesh, handoff: dict) -> dict:
            "param_gib": sum(p.numel() * p.element_size() for p in flux.parameters()) / 2**30}
     out["vel_ms"] = cuda_ms(lambda: vel(flux, tok, ids, tar, handoff["t"]), 2, torch)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    out["attn_launches"] = fa.fused_attention.launches
+    out["attn_launches"] = launch_counts()[ATTN]
     return out
 
 
@@ -3860,16 +3865,16 @@ def main() -> int:
     from skyfall_gs_tpu_torch.config import OptimizationConfig
     from skyfall_gs_tpu_torch.model.gaussians import flat_fields
     from skyfall_gs_tpu_torch.model.render import measure_bin_capacity
+    from skyfall_gs_tpu_torch.ops import cuda_lib
     from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
     from skyfall_gs_tpu_torch.ops.binning import num_tiles
-    from skyfall_gs_tpu_torch.ops.projection import project_gaussians
     from skyfall_gs_tpu_torch.train.step import init_train_state, make_train_step
 
     # -- phase 0: the card and the toolchain ---------------------------------
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    nvcc = run([rt.nvcc_path(), "--version"]).splitlines()[-1]
+    nvcc = run([cuda_lib.nvcc_path(), "--version"]).splitlines()[-1]
     log(0, f"card [{card}] torch {torch.__version__} cuda {torch.version.cuda} "
            f"nvcc [{nvcc}] devices {torch.cuda.device_count()}")
     log(0, f"image libraries: PIL {module_version('PIL')}, cv2 {module_version('cv2')} "
@@ -3877,8 +3882,7 @@ def main() -> int:
 
     # -- phase 1: build -------------------------------------------------------
     t0 = time.perf_counter()
-    lib = rt.build_library()
-    rt._library()
+    lib = load_library(rt.LIBRARY)
     ptxas = ptxas_report(lib.with_suffix(".log").read_text())
     assert set(ptxas) == {"fwd", "bwd"}, ptxas
     log(1, f"built {lib.name} in {time.perf_counter() - t0:.1f} s; ptxas: fwd_kernel "
@@ -3938,8 +3942,7 @@ def main() -> int:
     metrics = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(rt)
-    project_gaussians.launches = project_gaussians.backward_launches = 0
+    reset_launches(*COMPOSITE.values(), PROJ_FWD, PROJ_BWD)
     t_wall = time.perf_counter()
     for i in range(n_steps):
         if i == WARMUP_STEPS:
@@ -3950,7 +3953,7 @@ def main() -> int:
     events[n_steps].record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_wall
-    launches = launches_of(rt)
+    launches = launches_of()
     step_ms = [events[i].elapsed_time(events[i + 1])
                for i in range(WARMUP_STEPS, n_steps)]
     losses = torch.stack([m.loss for m in metrics])
@@ -3962,8 +3965,8 @@ def main() -> int:
     assert int(overflow.max()) == 0, f"bin capacity overflow: {overflow.tolist()}"
     assert bool((n_alive == N_GAUSSIANS).all()), n_alive.tolist()
     assert launches == {"fwd": n_steps, "bwd": n_steps}, launches
-    launches["proj"] = project_gaussians.launches
-    launches["proj_bwd"] = project_gaussians.backward_launches
+    launches["proj"] = launch_counts()[PROJ_FWD]
+    launches["proj_bwd"] = launch_counts()[PROJ_BWD]
     assert (launches["proj"], launches["proj_bwd"]) == (n_steps, n_steps), launches
     med = float(np.median(step_ms))
     log(3, f"main path on [{card}]: {n_steps} steps at {IMG}px / {N_GAUSSIANS} splats, "
@@ -4027,14 +4030,14 @@ def main() -> int:
 
     lap("1-4")
     # -- phase 5: the Trainer on the quality scene ------------------------------
-    counts, q_seed0 = quality_phase(torch, rt, dev, card)
+    counts, q_seed0 = quality_phase(torch, dev, card)
     for k, n in counts.items():
         launches[k] += n
     lap("5")
 
     with tempfile.TemporaryDirectory(prefix="skyfall_cli_") as tmp:
         # -- phase 6: the CLI chain on a scene read from disk ---------------------
-        counts, sat = cli_phase(torch, rt, dev, card, Path(tmp))
+        counts, sat = cli_phase(torch, dev, card, Path(tmp))
         for k, n in counts.items():
             launches[k] += n
         torch.cuda.empty_cache()
@@ -4048,32 +4051,32 @@ def main() -> int:
         lap("7")
 
         # -- phase 8: Stage 2 on phase 6's scene ----------------------------------
-        counts, handoff = stage2_phase(torch, rt, dev, card, Path(tmp))
+        counts, handoff = stage2_phase(torch, dev, card, Path(tmp))
         launches["attn"] = 0                 # the attention kernel is counted from phase 8 on
         for k, n in counts.items():
             launches[k] += n                 # the projection's: phase 3's and phase 8's
         lap("8")
 
         # -- phase 9: the evaluation suites and the LPIPS loss ----------------------
-        for k, n in eval_phase(torch, rt, dev, card, Path(tmp), sat, q_seed0).items():
+        for k, n in eval_phase(torch, dev, card, Path(tmp), sat, q_seed0).items():
             launches[k] += n
         torch.cuda.empty_cache()
         lap("9")
 
         # -- phase 10: the viewer, align_ges, the launcher and render_videos ------
-        for k, n in tools_phase(torch, rt, dev, card, Path(tmp), sat).items():
+        for k, n in tools_phase(torch, dev, card, Path(tmp), sat).items():
             launches[k] += n
         torch.cuda.empty_cache()
         lap("10")
 
         # -- phase 11: view-parallel training ----------------------------------------
-        for k, n in parallel_phase(torch, rt, dev, card, Path(tmp), sat, med).items():
+        for k, n in parallel_phase(torch, dev, card, Path(tmp), sat, med).items():
             launches[k] += n
         torch.cuda.empty_cache()
         lap("11")
 
         # -- phase 12: gaussian-sharded training --------------------------------------
-        for k, n in gauss_phase(torch, rt, dev, card, Path(tmp), sat, med).items():
+        for k, n in gauss_phase(torch, dev, card, Path(tmp), sat, med).items():
             launches[k] += n
         torch.cuda.empty_cache()
         lap("12")

@@ -63,8 +63,7 @@ def main() -> int:
     card = cs.run(["nvidia-smi", "--query-gpu=name,power.limit",
                    "--format=csv,noheader"]).splitlines()[0]
     print(f"[{card}] torch {torch.__version__}", flush=True)
-    rt.build_library()
-    rt._library()
+    rt.LIBRARY.load()
     v, bg = cs.P_VIEW, torch.zeros(3, device=cs.DEVICE)
 
     def draw(model, cam):

@@ -3,7 +3,9 @@
     python3 scripts/compare_composite.py --baseline DIR [--reps 50]
 
 DIR is an unpacked earlier checkout of the repository (``git archive
-<commit> | tar -x -C DIR``); its kernels are built from its own sources.  On
+<commit> | tar -x -C DIR``); its kernels are built from its own sources (a
+tree from before ``ops/cuda_lib.py`` builds them with its own
+``build_library``).  On
 one view of chip_smoke.py's phase-3 bench scene (512x512, 100k untrained
 splats, measured capacity) the baseline's forward must equal this tree's and
 its per-gaussian gradient must agree within 1e-4 per column; then each
@@ -30,7 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def load_rasterize_tiled(tree: Path, name: str):
     """``ops/rasterize_tiled.py`` of ``tree`` as module ``name``; it builds
-    its kernels from ``tree``'s own ``csrc/`` into ``tree/build``."""
+    its kernels from ``tree``'s own ``csrc/``."""
     path = tree / "skyfall_gs_tpu_torch" / "ops" / "rasterize_tiled.py"
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
@@ -68,7 +70,8 @@ def main(argv=None) -> int:
     trees = {"baseline": load_rasterize_tiled(opts.baseline.resolve(), "baseline_rasterize_tiled"),
              "this": rt}
     for key, mod in trees.items():
-        lib = mod.build_library()
+        # A tree from before ops/cuda_lib.py builds with its own build_library.
+        lib = mod.build_library() if hasattr(mod, "build_library") else cs.load_library(mod.LIBRARY)
         ptx = cs.ptxas_report(lib.with_suffix(".log").read_text())
         print(f"{key}: built {lib.name}; ptxas fwd_kernel {ptx.get('fwd')} | "
               f"bwd_kernel {ptx.get('bwd')}", flush=True)

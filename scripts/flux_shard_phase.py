@@ -46,8 +46,7 @@ def main() -> int:
                    "--format=csv,noheader"]).splitlines()[0]
     print(f"[{card}] devices {torch.cuda.device_count()} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    rt.build_library()
-    rt._library()
+    rt.LIBRARY.load()
     dev = torch.device(cs.DEVICE)
     with tempfile.TemporaryDirectory(prefix="skyfall_p13_") as tmp:
         tmp = Path(tmp)

@@ -115,8 +115,6 @@ def main() -> int:
     card = cs.run(["nvidia-smi", "--query-gpu=name,power.limit",
                    "--format=csv,noheader"]).splitlines()[0]
     print(f"[{card}] tree {tree} torch {torch.__version__}", flush=True)
-    rt.build_library()
-    rt._library()
     psnr: dict[int, list[float]] = {seed: [] for seed in args.seeds}
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="skyfall_q6_") as tmp:

@@ -68,8 +68,7 @@ def main() -> int:
                    "--format=csv,noheader"]).splitlines()[0]
     print(f"[{card}] devices {torch.cuda.device_count()} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
-    rt.build_library()
-    rt._library()
+    rt.LIBRARY.load()
     dev = torch.device(cs.DEVICE)
     med = phase3_step_ms(torch, dev)
     print(f"phase 3 step median {med:.3f} ms on [{card}]", flush=True)
@@ -84,7 +83,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         sat = {"scene": tmp / "scene", "median": {"model": tmp / "model0"}}
         t0 = time.perf_counter()
-        launches = cs.parallel_phase(torch, rt, dev, card, tmp, sat, med)
+        launches = cs.parallel_phase(torch, dev, card, tmp, sat, med)
         print(f"phase 11 alone {time.perf_counter() - t0:.1f} s; launches {launches}",
               flush=True)
     return 0

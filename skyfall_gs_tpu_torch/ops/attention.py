@@ -20,23 +20,25 @@ rules:
 with head width 128 (FLUX.1's), q, k and v of one shape with unit stride in
 the last dimension, the other strides multiples of 8 elements (TMA reads
 them, so a transposed view needs no copy) and the data 16-byte aligned.
-``fused_attention.launches`` counts the launches.  Span ``flux.attention``
-covers each ``block_attention`` call and counter ``flux.attention.kernel``
-counts the calls that launched the kernel.
+Span ``flux.attention`` covers each ``block_attention`` call and counter
+``flux.attention.kernel`` counts the calls that launched the kernel.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
+from pathlib import Path
 
 import torch
 
-from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+from skyfall_gs_tpu_torch.ops import cuda_lib
 from skyfall_gs_tpu_torch.utils.trace import count, span
 
 HEAD_DIM = 128
+
+LIBRARY = cuda_lib.Library(
+    Path(__file__).resolve().parents[1] / "csrc" / "attention.cu",
+    skyfall_flash_attention=[cuda_lib.ptr] * 4 + [cuda_lib.i32] * 3 + [cuda_lib.i64] * 9)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -51,15 +53,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
         out[i] = torch.matmul(torch.softmax(s, -1).to(v.dtype), v[i])
         del s
     return out.transpose(1, 2).reshape(b, n, h * hd)
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(rt.build_library("attention")))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.skyfall_flash_attention.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 9 + [ptr]
-    lib.skyfall_flash_attention.restype = i32
-    return lib
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -83,17 +76,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     _check(q, k, v)
     b, h, n, hd = q.shape
     out = torch.empty((b, n, h * hd), dtype=q.dtype, device=q.device)
-    fused_attention.launches += 1
-    with torch.cuda.device(q.device):
-        rc = _library().skyfall_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], rt._stream_ptr(q.device))
-    if rc != 0:
-        raise RuntimeError(f"skyfall_flash_attention launch failed: cudaError {rc}")
+    LIBRARY.launch("skyfall_flash_attention", q, k, v, out, b, h, n,
+                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     return out
-
-
-fused_attention.launches = 0
 
 
 _ATTENTION = span("flux.attention")
@@ -105,6 +90,7 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     with _ATTENTION:
         if q.dtype != torch.bfloat16:
             return attention(q, k, v)
+        launched = cuda_lib.launches["skyfall_flash_attention"]
         out = fused_attention(q, k, v)
-        count("flux.attention.kernel", int(q.is_cuda))
+        count("flux.attention.kernel", cuda_lib.launches["skyfall_flash_attention"] - launched)
         return out

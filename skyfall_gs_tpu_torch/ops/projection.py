@@ -20,16 +20,12 @@ by what its inputs show:
   None and a camera whose tensors are float32 on the same device, and
   raise ``ValueError`` on anything else;
 - CPU tensors, or a given ``cov3d``, run the plain version.
-
-``project_gaussians.launches`` and ``project_gaussians.backward_launches``
-count the kernels' launches.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from dataclasses import dataclass
+from pathlib import Path
 
 import torch
 
@@ -38,7 +34,7 @@ from skyfall_gs_tpu_torch.core.transforms import (
     covariance_from_scaling_rotation,
     quat_to_rotmat,
 )
-from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+from skyfall_gs_tpu_torch.ops import cuda_lib
 
 NEAR_CULL_Z = 0.2
 
@@ -209,36 +205,32 @@ def project_gaussians_torch(
 # The kernels (csrc/projection.cu) and their routing
 # ----------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(rt.build_library("projection")))
-    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    camera = [ptr] * 9 + [i32] + [f32] * 9
-    lib.skyfall_project_fwd.argtypes = camera + [i32] + [ptr] * 12 + [ptr]
-    lib.skyfall_project_fwd.restype = i32
-    lib.skyfall_project_bwd.argtypes = camera + [i32] + [ptr] * 5 + [ptr, i64] * 5 + [ptr] * 5
-    lib.skyfall_project_bwd.restype = i32
-    return lib
+_CAMERA = [cuda_lib.ptr] * 9 + [cuda_lib.i32] + [cuda_lib.f32] * 9
+LIBRARY = cuda_lib.Library(
+    Path(__file__).resolve().parents[1] / "csrc" / "projection.cu",
+    skyfall_project_fwd=_CAMERA + [cuda_lib.i32] + [cuda_lib.ptr] * 12,
+    skyfall_project_bwd=_CAMERA + [cuda_lib.i32] + [cuda_lib.ptr] * 5
+    + [cuda_lib.ptr, cuda_lib.i64] * 5 + [cuda_lib.ptr] * 4)
 
 
 def _camera_args(camera: Camera, device: torch.device, kernel_size: float,
                  scaling_modifier: float) -> list:
-    """The camera arguments of both kernels: pointers to the camera's device
-    tensors (no host read), its clamp window where it fixes one, the frame's
-    size, the dilation and the scale modifier."""
-    tensors = {"world_view": 16, "full_proj": 16, "cam_center": 3, "focal_x": 1,
-               "focal_y": 1, "tan_fovx": 1, "tan_fovy": 1, "cx": 1, "cy": 1}
-    ptrs = []
-    for name, size in tensors.items():
+    """The camera arguments of both kernels: the camera's device tensors (no
+    host read), its clamp window where it fixes one, the frame's size, the
+    dilation and the scale modifier."""
+    sizes = {"world_view": 16, "full_proj": 16, "cam_center": 3, "focal_x": 1,
+             "focal_y": 1, "tan_fovx": 1, "tan_fovy": 1, "cx": 1, "cy": 1}
+    tensors = []
+    for name, size in sizes.items():
         t = getattr(camera, name)
         if t.dtype != torch.float32 or t.device != device or t.numel() != size \
                 or not t.is_contiguous():
             raise ValueError(
                 f"camera.{name}: expected {size} contiguous float32 on {device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
-        ptrs.append(t.data_ptr())
+        tensors.append(t)
     window = camera.clamp_window
-    return ptrs + [int(window is not None)] + [float(v) for v in window or (0.0,) * 4] + [
+    return tensors + [int(window is not None)] + [float(v) for v in window or (0.0,) * 4] + [
         FRUSTUM_CLAMP, float(camera.width), float(camera.height), float(kernel_size),
         float(scaling_modifier)]
 
@@ -261,10 +253,6 @@ def _kernel_inputs(means3d, scales, quats, opacities, mask) -> tuple:
         quats = quats.clone()
     return (means3d.contiguous(), scales.contiguous(), quats, opacities.contiguous(),
             None if mask is None else mask.contiguous())
-
-
-def _ptr(x) -> int | None:
-    return None if x is None else x.data_ptr()
 
 
 def _cotangent(g) -> tuple:
@@ -293,14 +281,8 @@ class _Projection(torch.autograd.Function):
         depth, opacity, comp = (torch.empty(n, **f32) for _ in range(3))
         radius = torch.empty(n, dtype=torch.int32, device=dev)
         radius_xy = torch.empty((n, 2), dtype=torch.int32, device=dev)
-        project_gaussians.launches += 1
-        with torch.cuda.device(dev):
-            rc = _library().skyfall_project_fwd(
-                *cam, n, *map(_ptr, inputs), mean2d.data_ptr(), conic.data_ptr(),
-                depth.data_ptr(), radius.data_ptr(), opacity.data_ptr(), comp.data_ptr(),
-                radius_xy.data_ptr(), rt._stream_ptr(dev))
-        if rc != 0:
-            raise RuntimeError(f"skyfall_project_fwd launch failed: cudaError {rc}")
+        LIBRARY.launch("skyfall_project_fwd", *cam, n, *inputs, mean2d, conic, depth,
+                       radius, opacity, comp, radius_xy)
         ctx.save_for_backward(*inputs)
         ctx.camera, ctx.kernel_size, ctx.scaling_modifier = camera, kernel_size, scaling_modifier
         ctx.mark_non_differentiable(radius, radius_xy)
@@ -314,14 +296,8 @@ class _Projection(torch.autograd.Function):
         cam = _camera_args(ctx.camera, dev, ctx.kernel_size, ctx.scaling_modifier)
         cots = [_cotangent(g) for g in (g_mean2d, g_conic, g_depth, g_opacity, g_comp)]
         grads = [torch.empty_like(x) for x in (means3d, scales, quats, opacities)]
-        project_gaussians.backward_launches += 1
-        with torch.cuda.device(dev):
-            rc = _library().skyfall_project_bwd(
-                *cam, n, *map(_ptr, (means3d, scales, quats, opacities, mask)),
-                *[v for g, stride in cots for v in (_ptr(g), stride)],
-                *map(_ptr, grads), rt._stream_ptr(dev))
-        if rc != 0:
-            raise RuntimeError(f"skyfall_project_bwd launch failed: cudaError {rc}")
+        LIBRARY.launch("skyfall_project_bwd", *cam, n, means3d, scales, quats, opacities,
+                       mask, *[v for cot in cots for v in cot], *grads)
         return (*grads, None, None, None, None)
 
 
@@ -349,9 +325,6 @@ def project_gaussians(
     return ProjectedGaussians(mean2d=mean2d, conic=conic, depth=depth, radius=radius,
                               opacity=opacity, compensation=comp, radius_xy=radius_xy)
 
-
-project_gaussians.launches = 0
-project_gaussians.backward_launches = 0
 
 
 def smallest_axis_normals(scales: torch.Tensor, quats: torch.Tensor,

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from skyfall_gs_tpu_torch.core.camera import Camera
+from skyfall_gs_tpu_torch.ops import cuda_lib
 from skyfall_gs_tpu_torch.ops.binning import per_splat_entries
 from skyfall_gs_tpu_torch.ops.projection import (
     ProjectedGaussians,
@@ -132,12 +133,12 @@ def rasterize(
             256, so nothing overflows.
     """
     with _PROJECT:
-        launched = project_gaussians.launches
+        launched = cuda_lib.launches["skyfall_project_fwd"]
         proj = project_gaussians(
             means3d, scales, quats, opacities, camera,
             kernel_size=kernel_size, mask=mask, scaling_modifier=scaling_modifier,
         )
-        count("render.project.kernel", project_gaussians.launches - launched)
+        count("render.project.kernel", cuda_lib.launches["skyfall_project_fwd"] - launched)
     if entry_budget is not None:
         if not inference:
             raise ValueError("entry_budget is an inference-only LOD mode; "

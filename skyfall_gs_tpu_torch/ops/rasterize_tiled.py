@@ -15,8 +15,8 @@ depth-sorted run:
 Each kernel has a plain PyTorch version here (``composite_fwd_torch`` /
 ``composite_bwd_torch``).  The wrappers ``composite_fwd`` / ``composite_bwd``
 run the plain version for CPU tensors and the CUDA kernel for CUDA tensors;
-there is no fallback from one to the other.  Each wrapper counts its kernel
-launches in ``.launches``.
+there is no fallback from one to the other.  ``ops/cuda_lib.py`` builds,
+loads and launches the kernels and counts their launches.
 
 Layout.  The per-gaussian table is (N+1, 16) float32, one row per splat
 plus a zero dummy row N:
@@ -47,18 +47,13 @@ nothing resumes after it.  ``T_final`` is T after the last kept entry.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from skyfall_gs_tpu_torch.ops import cuda_lib
 from skyfall_gs_tpu_torch.ops.binning import TILE, bin_gaussians, num_tiles
 from skyfall_gs_tpu_torch.ops.rasterize_ref import ALPHA_EPS, ALPHA_MAX, T_EPS
 
@@ -66,57 +61,10 @@ P = TILE * TILE      # pixels per tile = 256
 NA = 16              # table / gradient columns per entry
 NCH = 7              # blended channels
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-# Built libraries go to <repo>/build/, keyed by a hash of the sources.
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-
-
-# ----------------------------------------------------------------------------
-# Build and bind the CUDA library (plain C interface, loaded with ctypes)
-# ----------------------------------------------------------------------------
-
-def nvcc_path() -> str:
-    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
-    else the toolkit's default location."""
-    if "CUDA_HOME" in os.environ:
-        return str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
-    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-
-
-def build_library(name: str = "composite") -> Path:
-    """Compile ``csrc/<name>.cu`` with nvcc into its own library in
-    ``build/`` (once per source hash) and return the library's path.  Raises
-    with nvcc's stderr if the build fails.  ptxas's register/shared-memory
-    report is kept beside the library as ``.log``."""
-    source = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes())
-    digest.update(" ".join(_NVCC_FLAGS).encode())
-    lib = _BUILD_DIR / f"libskyfall_{name}_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc_path(), *_NVCC_FLAGS, "-o", str(tmp), str(source)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.skyfall_composite_fwd.argtypes = [ptr] * 8 + [i32, i32, ptr]
-    lib.skyfall_composite_fwd.restype = i32
-    lib.skyfall_composite_bwd.argtypes = [ptr] * 11 + [i32, i32, ptr]
-    lib.skyfall_composite_bwd.restype = i32
-    return lib
+LIBRARY = cuda_lib.Library(
+    Path(__file__).resolve().parents[1] / "csrc" / "composite.cu",
+    skyfall_composite_fwd=[cuda_lib.ptr] * 8 + [cuda_lib.i32] * 2,
+    skyfall_composite_bwd=[cuda_lib.ptr] * 11 + [cuda_lib.i32] * 2)
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -138,10 +86,6 @@ def _check_inputs(table, gather_idx, tile_start, tile_count, offx, offy):
     _check("tile_count", tile_count, torch.int32, (t_total,), dev)
     _check("offx", offx, torch.float32, (t_total, P), dev)
     _check("offy", offy, torch.float32, (t_total, P), dev)
-
-
-def _stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 # ----------------------------------------------------------------------------
@@ -357,17 +301,9 @@ def composite_fwd(table, gather_idx, tile_start, tile_count, offx, offy,
     t_total = tile_start.shape[0]
     out = torch.empty((t_total, NCH, P), dtype=torch.float32, device=table.device)
     tfin = torch.empty((t_total, P), dtype=torch.float32, device=table.device)
-    composite_fwd.launches += 1
-    rc = _library().skyfall_composite_fwd(
-        table.data_ptr(), gather_idx.data_ptr(), tile_start.data_ptr(),
-        tile_count.data_ptr(), offx.data_ptr(), offy.data_ptr(), out.data_ptr(),
-        tfin.data_ptr(), t_total, tiles_x, _stream_ptr(table.device))
-    if rc != 0:
-        raise RuntimeError(f"skyfall_composite_fwd launch failed: cudaError {rc}")
+    LIBRARY.launch("skyfall_composite_fwd", table, gather_idx, tile_start, tile_count,
+                   offx, offy, out, tfin, t_total, tiles_x)
     return out, tfin
-
-
-composite_fwd.launches = 0
 
 
 def composite_bwd(table, gather_idx, tile_start, tile_count, offx, offy,
@@ -382,18 +318,9 @@ def composite_bwd(table, gather_idx, tile_start, tile_count, offx, offy,
                            ("dout", dout, (t_total, NCH, P)), ("dtfin", dtfin, (t_total, P))):
         _check(name, x, torch.float32, shape, table.device)
     dtable = torch.zeros_like(table)                         # the kernel adds into it
-    composite_bwd.launches += 1
-    rc = _library().skyfall_composite_bwd(
-        table.data_ptr(), gather_idx.data_ptr(), tile_start.data_ptr(),
-        tile_count.data_ptr(), offx.data_ptr(), offy.data_ptr(), out.data_ptr(),
-        tfin.data_ptr(), dout.data_ptr(), dtfin.data_ptr(), dtable.data_ptr(),
-        t_total, tiles_x, _stream_ptr(table.device))
-    if rc != 0:
-        raise RuntimeError(f"skyfall_composite_bwd launch failed: cudaError {rc}")
+    LIBRARY.launch("skyfall_composite_bwd", table, gather_idx, tile_start, tile_count,
+                   offx, offy, out, tfin, dout, dtfin, dtable, t_total, tiles_x)
     return dtable
-
-
-composite_bwd.launches = 0
 
 
 class _Composite(torch.autograd.Function):

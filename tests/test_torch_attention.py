@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from skyfall_gs_tpu_torch.ops import attention as fa
+from skyfall_gs_tpu_torch.ops.cuda_lib import launches
 from skyfall_gs_tpu_torch.priors import flux as tf
 from skyfall_gs_tpu_torch.priors import moge as tm
 from skyfall_gs_tpu_torch.utils import trace
@@ -70,11 +71,11 @@ def test_tiled_algorithm_against_float64_beside_the_plain_version(n):
 
 def test_wrapper_on_cpu_tensors_is_the_plain_version():
     q, k, v = cs.attention_inputs(torch, 2, 3, 70, seed=1)
-    before = fa.fused_attention.launches
+    before = launches["skyfall_flash_attention"]
     assert torch.equal(fa.fused_attention(q, k, v), fa.attention(q, k, v))
     q32, k32, v32 = (x.float() for x in (q, k, v))
     assert torch.equal(fa.fused_attention(q32, k32, v32), fa.attention(q32, k32, v32))
-    assert fa.fused_attention.launches == before
+    assert launches["skyfall_flash_attention"] == before
 
 
 def _tiny_flux_call(dtype):
@@ -142,10 +143,10 @@ def test_kernel_against_float64_beside_the_plain_version_on_the_card(b, h, n, v_
         v = v.transpose(1, 2).reshape(b, n, h * HD).reshape(b, n, h, HD).transpose(1, 2)
         assert n == 1 or not v.is_contiguous()     # a size-1 L counts as contiguous
     want = cs.attention_float64(torch, q, k, v)
-    before = fa.fused_attention.launches
+    before = launches["skyfall_flash_attention"]
     got = fa.fused_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fa.fused_attention.launches == before + 1
+    assert launches["skyfall_flash_attention"] == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (b, n, h * HD)
     plain_max, plain_mean = cs.abs_errors(fa.attention(q, k, v), want)
     got_max, got_mean = cs.abs_errors(got, want)
@@ -157,10 +158,10 @@ def test_kernel_against_float64_beside_the_plain_version_on_the_card(b, h, n, v_
 def test_kernel_wrapper_counts_launches_and_checks_inputs_on_the_card():
     dev = _card()
     q, k, v = cs.attention_inputs(torch, 1, 2, 256, seed=3, device=dev)
-    before = fa.fused_attention.launches
+    before = launches["skyfall_flash_attention"]
     fa.fused_attention(q, k, v)
     fa.fused_attention(q, k, v)
-    assert fa.fused_attention.launches == before + 2
+    assert launches["skyfall_flash_attention"] == before + 2
     with pytest.raises(ValueError, match="bf16"):
         fa.fused_attention(q.float(), k.float(), v.float())
     with pytest.raises(ValueError, match="bf16"):
@@ -169,5 +170,5 @@ def test_kernel_wrapper_counts_launches_and_checks_inputs_on_the_card():
     strided.copy_(k)
     with pytest.raises(ValueError, match="unit stride"):
         fa.fused_attention(q, strided, v)
-    assert fa.fused_attention.launches == before + 2
+    assert launches["skyfall_flash_attention"] == before + 2
     torch.cuda.synchronize()

@@ -17,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
+from skyfall_gs_tpu_torch.ops import cuda_lib
 from skyfall_gs_tpu_torch.ops import rasterize_tiled as rt
+from skyfall_gs_tpu_torch.ops.cuda_lib import launches
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,9 +31,9 @@ def test_build_failure_raises_with_nvcc_stderr(tmp_path, monkeypatch):
     nvcc.write_text("#!/bin/sh\necho 'composite.cu(1): error: boom' >&2\nexit 2\n")
     nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(rt, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="boom"):
-        rt.build_library()
+        cuda_lib.build_library(rt.LIBRARY.source)
     assert not list((tmp_path / "build").glob("*.so"))
 
 
@@ -159,11 +161,11 @@ def test_kernel_wrappers_count_launches_and_check_inputs():
     table, binned, offx, offy = rt.composite_inputs(m, c, d, r, o, ch, 128, 128,
                                                     cap=1 << 16, radius_xy=rxy)
     args = (binned.gather_idx, binned.tile_start, binned.tile_count, offx, offy, 8)
-    before = (rt.composite_fwd.launches, rt.composite_bwd.launches)
+    before = (launches["skyfall_composite_fwd"], launches["skyfall_composite_bwd"])
     out, tfin = rt.composite_fwd(table, *args)
     grad = rt.composite_bwd(table, *args[:5], out, tfin, torch.ones_like(out),
                             torch.ones_like(tfin), 8)
-    assert (rt.composite_fwd.launches, rt.composite_bwd.launches) == (before[0] + 1,
+    assert (launches["skyfall_composite_fwd"], launches["skyfall_composite_bwd"]) == (before[0] + 1,
                                                                      before[1] + 1)
     assert grad.shape == table.shape
     with pytest.raises(ValueError, match="table"):
@@ -174,6 +176,6 @@ def test_kernel_wrappers_count_launches_and_check_inputs():
     with pytest.raises(ValueError, match="gather_idx"):
         rt.composite_bwd(table, binned.gather_idx.int(), *args[1:5], out, tfin,
                          torch.ones_like(out), torch.ones_like(tfin), 8)
-    assert (rt.composite_fwd.launches, rt.composite_bwd.launches) == (before[0] + 1,
+    assert (launches["skyfall_composite_fwd"], launches["skyfall_composite_bwd"]) == (before[0] + 1,
                                                                      before[1] + 1)
     torch.cuda.synchronize()

@@ -21,6 +21,7 @@ from skyfall_gs_tpu.ops import projection as jproj
 from skyfall_gs_tpu_torch.core.camera import camera_from_c2w as tcamera_from_c2w
 from skyfall_gs_tpu_torch.core.transforms import covariance_from_scaling_rotation
 from skyfall_gs_tpu_torch.ops import projection as tproj
+from skyfall_gs_tpu_torch.ops.cuda_lib import launches
 from skyfall_gs_tpu_torch.ops.rasterize import rasterize
 from skyfall_gs_tpu_torch.utils import trace
 
@@ -183,14 +184,13 @@ def test_cpu_tensors_and_a_given_cov3d_take_the_plain_version(rng, monkeypatch):
     xs = [_t(s[k]) for k in ("means", "scales", "quats", "opac")]
     mask = torch.from_numpy(np.arange(60) % 7 != 3)
     cov3d = covariance_from_scaling_rotation(xs[1], xs[2])
-    launches = (tproj.project_gaussians.launches, tproj.project_gaussians.backward_launches)
+    before = (launches["skyfall_project_fwd"], launches["skyfall_project_bwd"])
     for kw in ({}, {"mask": mask}, {"cov3d": cov3d, "mask": mask}):
         got = tproj.project_gaussians(*xs, tcam, kernel_size=0.1, **kw)
         want = tproj.project_gaussians_torch(*xs, tcam, kernel_size=0.1, **kw)
         for f in dataclasses.fields(want):
             assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
-    assert (tproj.project_gaussians.launches,
-            tproj.project_gaussians.backward_launches) == launches
+    assert (launches["skyfall_project_fwd"], launches["skyfall_project_bwd"]) == before
 
 
 def test_profiled_render_counts_the_projection_kernel_inside_its_span(rng):

@@ -28,6 +28,7 @@ import torch
 
 from skyfall_gs_tpu_torch.core.camera import camera_from_c2w, look_at_c2w
 from skyfall_gs_tpu_torch.ops import projection as P
+from skyfall_gs_tpu_torch.ops.cuda_lib import launches
 
 torch.set_num_threads(1)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -158,28 +159,28 @@ def test_routing_launch_counts_and_input_checks_on_the_card():
     dev = _card()
     cam, s = edge_case("dead_behind_near_plane", dev)
     xs = [s[k] for k in cs.PROJ_INPUTS]
-    fwd, bwd = P.project_gaussians.launches, P.project_gaussians.backward_launches
+    fwd, bwd = launches["skyfall_project_fwd"], launches["skyfall_project_bwd"]
     with torch.no_grad():
         got = P.project_gaussians(*xs, cam)            # no mask: every splat alive
     want = P.project_gaussians_torch(*xs, cam)
-    assert (P.project_gaussians.launches, P.project_gaussians.backward_launches) == (fwd + 1, bwd)
+    assert (launches["skyfall_project_fwd"], launches["skyfall_project_bwd"]) == (fwd + 1, bwd)
     for f in ("mean2d", "conic", "depth", "opacity", "compensation"):
         torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=1e-4, atol=1e-5)
     assert torch.equal(got.radius, want.radius) and torch.equal(got.radius_xy, want.radius_xy)
     assert got.radius.dtype == got.radius_xy.dtype == torch.int32
     leaf = xs[0].detach().requires_grad_()
     P.project_gaussians(leaf, *xs[1:], cam, mask=s["alive"]).mean2d.sum().backward()
-    assert (P.project_gaussians.launches, P.project_gaussians.backward_launches) == (
+    assert (launches["skyfall_project_fwd"], launches["skyfall_project_bwd"]) == (
         fwd + 2, bwd + 1)
     assert bool(torch.isfinite(leaf.grad).all())
     cov3d = torch.eye(3, device=dev).expand(len(xs[0]), 3, 3) * 0.01
     P.project_gaussians(*xs, cam, cov3d=cov3d)         # a given cov3d: the plain version
-    assert P.project_gaussians.launches == fwd + 2
+    assert launches["skyfall_project_fwd"] == fwd + 2
     with pytest.raises(ValueError, match="float32"):
         P.project_gaussians(xs[0].double(), *xs[1:], cam)
     with pytest.raises(ValueError, match="bool"):
         P.project_gaussians(*xs, cam, mask=s["alive"].int())
     with pytest.raises(ValueError, match="camera.world_view"):
         P.project_gaussians(*xs, cam.to("cpu"))
-    assert P.project_gaussians.launches == fwd + 2
+    assert launches["skyfall_project_fwd"] == fwd + 2
     torch.cuda.synchronize()
